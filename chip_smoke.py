@@ -100,6 +100,40 @@ def synthetic_lut(seed: int):
             np.broadcast_to(gain, (pano_h, pano_w)).astype(np.float32))
 
 
+def mat2_needs(ml, m2) -> dict:
+    """What the mat2 function must read for this LUT, for its bound.
+
+    frame_bytes: bytes of one frame set in the 32-byte sectors that some
+      pixel's four clamped taps read, the distinct (cam, row, column // 32)
+      over kernel pixels and covered fallback pixels, times 3 channels (the
+      planes are 32-byte aligned, so each channel reads the same sectors);
+    lut_bytes: the LUT as the kernel reads it: tap_cw of every pixel; tap_xy
+      and gc of a kernel pixel; tap_xy and fb_cam of a fallback pixel, and
+      fb_sx, fb_sy, fb_gain of a covered one;
+    kernel_px, fallback_px: pixels on the integer path and covered pixels on
+      the float path."""
+    import torch
+    fh, fw = ml.frame_hw
+    if (fh * fw) % 32:
+        fail(f"frame planes of {fh}x{fw} bytes are not 32-byte aligned")
+    f = ml.fields()
+    kern = f["cam"] >= 0
+    fb_cov = ml.fb_cam >= 0
+    fx0, fy0, fx1, fy1, _, _ = m2.bilinear_taps(ml.fb_sx[fb_cov],
+                                                ml.fb_sy[fb_cov], fh, fw)
+    cam = torch.cat([f["cam"][kern].long(), ml.fb_cam[fb_cov].long()])
+    x0, y0 = f["x0"][kern].long(), f["y0"][kern].long()
+    xs = (torch.cat([x0, fx0]), torch.cat([(x0 + 1).clamp(max=fw - 1), fx1]))
+    ys = (torch.cat([y0, fy0]), torch.cat([(y0 + 1).clamp(max=fh - 1), fy1]))
+    sectors = torch.unique(torch.cat([((cam * fh + y) * fw + x) // 32
+                                      for y in ys for x in xs]))
+    n_kern, n_fb_cov = int(kern.sum()), int(fb_cov.sum())
+    return {"frame_bytes": 3 * 32 * int(sectors.numel()),
+            "lut_bytes": (4 * ml.tap_cw.numel() + 8 * n_kern
+                          + 8 * ml.fb_pix.numel() + 12 * n_fb_cov),
+            "kernel_px": n_kern, "fallback_px": n_fb_cov}
+
+
 def event_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of fn() over reps calls, by CUDA events."""
     for _ in range(warmup):
@@ -240,40 +274,37 @@ def main() -> None:
     print("shift_planar_bn: bit-exact against its plain version", flush=True)
 
     # -- 6. times ------------------------------------------------------
-    stream = torch.cuda.current_stream().cuda_stream
+    # the wrappers are timed as the main path calls them; their launch
+    # counts were read in phase 4
     Hp, Wp = ml.pano_hw
     npix = Hp * Wp
     fh, fw = FRAME_HW
-
-    def raw_mat2(planar):
-        B = planar.shape[0]
-        out = torch.empty((B, 3, npix), dtype=torch.uint8, device=dev)
-        ptrs = [t.data_ptr() for t in (planar, ml.tap_xy, ml.tap_cw, ml.gc,
-                                       ml.fb_cam, ml.fb_sx, ml.fb_sy,
-                                       ml.fb_gain, out)]
-        return lambda: _cuda.COMPOSITE_MAT2(*ptrs, B, N_CAMS, fh, fw, npix,
-                                            stream)
+    need = mat2_needs(ml, m2)
+    print(f"mat2 reads {need['frame_bytes']} of {N_CAMS * 3 * fh * fw} "
+          f"frame bytes a frame set (the sectors its taps touch) and "
+          f"{need['lut_bytes']} LUT bytes", flush=True)
 
     def mat2_bound(B):
-        # each input read once, each output written once: B frame sets, the
-        # 12-byte-a-pixel LUT (+16 bytes a fallback pixel), B*3 output
-        # planes; ~14 operations a pixel, channel and frame set on the
-        # integer path (4 int multiplies, 3 adds, convert, 3 float ops,
-        # round, 2 clamps), ~16 on the float path of a fallback pixel
-        n_fb = ml.fb_pix.numel()
-        nbytes = (B * N_CAMS * 3 * fh * fw + 12 * npix + 16 * n_fb
-                  + B * 3 * npix)
-        ops = B * 3 * (14 * n_kernel_px + 16 * n_fb)
+        # each input byte the function needs read once, each output written
+        # once: the frame sectors the taps touch, B times; the LUT as read;
+        # B*3 output planes. ~14 operations a pixel, channel and frame set
+        # on the integer path (4 int multiplies, 3 adds, convert, 3 float
+        # ops, round, 2 clamps), ~16 on the float path of a fallback pixel
+        nbytes = B * need["frame_bytes"] + need["lut_bytes"] + B * 3 * npix
+        ops = B * 3 * (14 * need["kernel_px"] + 16 * need["fallback_px"])
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
     rows = []
-    for k, B, tpu_line in ((m2.MAT2_SINGLE, 1, 388),
-                           (m2.MAT2_BATCHED, 16, 624)):
+    for k, B, tpu_line, fn in (
+            (m2.MAT2_SINGLE, 1, 388,
+             lambda: m2.composite_mat2_planar(planar32[0], ml)),
+            (m2.MAT2_BATCHED, 16, 624,
+             lambda: m2.composite_mat2_planar_batched(planar32[:16], ml))):
         planar = planar32[:B]
-        ms = event_ms(torch, raw_mat2(planar), reps=20, warmup=2)
+        ms = event_ms(torch, fn, reps=20, warmup=2)
         plain_ms = event_ms(torch, lambda: m2.composite_mat2_plain(planar, ml),
                             reps=2, warmup=1)
         bound_ms, bound_by = mat2_bound(B)
@@ -287,31 +318,28 @@ def main() -> None:
             "bound_by": bound_by,
             # no one PyTorch call computes the integer-weight gather
             "library_ms": None, "batch": B})
-    ms32 = event_ms(torch, raw_mat2(planar32), reps=10, warmup=1)
+    ms32 = event_ms(torch,
+                    lambda: m2.composite_mat2_planar_batched(planar32, ml),
+                    reps=10, warmup=1)
 
     def library_shift():
         tb = planar16.transpose(0, 1)
         return torch.stack([torch.nn.functional.pad(tb[..., s:], (0, s))
                             for s in range(0, 32 * m2.N_SHIFTS, 32)])
 
-    sh_out = torch.empty((m2.N_SHIFTS, N_CAMS, 16, 3) + FRAME_HW,
-                         dtype=torch.int8, device=dev)
-    raw_shift = lambda: _cuda.SHIFT_PLANAR_BN(  # noqa: E731
-        planar16.data_ptr(), sh_out.data_ptr(), 16, N_CAMS, 3 * fh, fw,
-        stream)
     sh_bytes = planar16.numel() * (1 + m2.N_SHIFTS)
     rows.append({
         "name": m2.SHIFT_BN.name, "route": "cuda",
         "source": "stitchingvideo_tpu_torch/csrc/shift_planar_bn.cu",
         "replaces": f"{TPU_SRC}:869",
         "launches": launches[m2.SHIFT_BN.name], "max_abs_err": err["shift"],
-        "ms": event_ms(torch, raw_shift, reps=20, warmup=2),
+        "ms": event_ms(torch, lambda: m2.shift_planar_bn(planar16), reps=20,
+                       warmup=2),
         "plain_ms": event_ms(torch, lambda: m2.shift_planar_bn_plain(planar16),
                              reps=5),
         "bound_ms": sh_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": event_ms(torch, library_shift, reps=5),
         "batch": 16, "path": "shift_planar_bn"})
-    del sh_out
 
     fps, call = {}, {}
     for B in (16, 32):
@@ -345,7 +373,8 @@ def main() -> None:
         "b1_latency_host": latency(lambda: vs.composite(frames), 40),
         "b1_latency_device": latency(lambda: vs.composite_planar(frames_d),
                                      40),
-        "mat2_kernel_ms_b32": ms32,
+        "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32": mat2_bound(32)[0],
+        "mat2_needs": need,
         "build_s": build_s, "install_lut_s": install_s,
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }

@@ -24,10 +24,12 @@
 // Bit-exactness: every float operation is __fsub_rn / __fmul_rn / __fadd_rn /
 // rintf (round half to even), and the library is built with -fmad=false.
 //
-// Bound on the card: memory bytes. It reads B frame sets (N*3*H*W int8 each)
-// and the LUT (12 bytes a pixel: tap_xy, tap_cw, gc; 16 bytes a fallback
-// pixel more), and writes B*3*Hp*Wp
-// uint8; it does about 12 integer and float operations a byte of output.
+// Bound on the card: memory bytes. It reads, B times, the parts of the frame
+// set (N*3*H*W int8) that its taps touch (not the outer columns a rig's LUT
+// never samples), and once the LUT (tap_cw of every pixel, tap_xy and gc of
+// a covered one; a fallback pixel's fb_* entry instead), and writes
+// B*3*Hp*Wp uint8; it does about 12 integer and float operations a byte of
+// output. chip_smoke.py's mat2_needs counts these bytes for a given LUT.
 // Design: deliberately simple, one thread per output pixel, which reads its
 // LUT entry once and loops over b and the 3 channels; neighbouring threads
 // gather neighbouring source pixels, so the taps' loads mostly coalesce and

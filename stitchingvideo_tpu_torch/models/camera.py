@@ -10,6 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclasses.dataclass
 class Cameras:
@@ -56,10 +58,14 @@ class Cameras:
         ], dim=-2)
 
     @classmethod
-    def create(cls, focal, ppx, ppy, R=None, aspect=None,
-               t=None) -> "Cameras":
+    def create(cls, focal, ppx, ppy, R=None, aspect=None, t=None,
+               device=None) -> "Cameras":
+        """device: 'cuda' unless given; with no CUDA present the default
+        raises."""
+        device = resolve_device(device, "Cameras")
+
         def f32(x):
-            return torch.as_tensor(np.asarray(x, np.float32))
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
         focal = f32(focal)
         n = focal.shape[0]

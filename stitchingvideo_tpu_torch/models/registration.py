@@ -4,7 +4,9 @@ Port of `stitchingvideo_tpu/models/registration.py`. `from_state_dict` is the
 carry-across function: it takes the numpy dict that the JAX package writes
 (`Registration.save`, `VideoStitcher.save_registration`) and returns the
 port's state, as tensors on a given device. `state_dict` gives the same
-numpy dict back, so a state can travel either way.
+numpy dict back, so a state can travel either way. Like every entry point
+of the port, `from_state_dict` and `load` place the state on `cuda` unless
+the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .camera import Cameras
 
 _CAMERA_KEYS = ("focal", "aspect", "ppx", "ppy", "R", "t")
@@ -78,6 +81,10 @@ class Registration:
 
     @classmethod
     def from_state_dict(cls, d: dict, device=None) -> "Registration":
+        """device: 'cuda' unless given; with no CUDA present the default
+        raises (there is no silent CPU fallback)."""
+        device = resolve_device(device, "Registration")
+
         def t(k):
             return torch.as_tensor(np.asarray(d[k]), device=device)
 

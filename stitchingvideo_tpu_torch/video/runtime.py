@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
+from ..device import resolve_device
 from ..models.registration import Registration
 from ..ops.composite_mat import frames_to_planar_i8, planar_to_hwc
 from ..ops.composite_mat2 import (build_mat2_lut, composite_mat2_planar,
@@ -90,13 +91,7 @@ class VideoStitcher:
             raise NotImplementedError(
                 "canvas_shards > 1 is slice 4 of the port "
                 f"({_ROADMAP}, item 22)")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("VideoStitcher runs on CUDA and no CUDA "
-                                   "device is available; pass device='cpu' "
-                                   "for the plain PyTorch path")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "VideoStitcher")
         self.cfg = cfg
         self._lock = threading.Lock()
         self._lut: Optional[CompositeLUT] = None

@@ -22,7 +22,7 @@ CROP = (11, 107, 10, 1050)     # the runtime's margins for this registration
 def test_build_lut_bit_exact(crop):
     d = make_registration_dict(seed=3)
     ref = jlut_mod.build_lut(JReg.from_state_dict(d), crop=crop)
-    got = build_lut(Registration.from_state_dict(d), crop=crop)
+    got = build_lut(Registration.from_state_dict(d, device="cpu"), crop=crop)
     for k in ("cam_idx", "src_x", "src_y", "gain"):
         r = np.asarray(getattr(ref, k))
         g = getattr(got, k).numpy()
@@ -34,7 +34,7 @@ def test_build_lut_bit_exact(crop):
 
 def test_build_lut_first_owner_wins():
     d = make_registration_dict(seed=4)
-    lut = build_lut(Registration.from_state_dict(d))
+    lut = build_lut(Registration.from_state_dict(d, device="cpu"))
     # canvas columns 330..365 are owned by cameras 0 and 1: camera 0 wins
     cam = lut.cam_idx.numpy()[20:100, 335:360]
     assert (cam == 0).all()

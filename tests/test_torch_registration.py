@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from stitchingvideo_tpu.models.registration import Registration as JReg
+from stitchingvideo_tpu_torch.models.camera import Cameras
 from stitchingvideo_tpu_torch.models.registration import Registration
 
 FRAME_HW = (128, 512)
@@ -86,17 +87,41 @@ def test_legacy_state_without_optional_keys():
     d = make_registration_dict()
     for k in ("extent_wh", "src_indices"):
         d.pop(k)
-    reg = Registration.from_state_dict(d)
+    reg = Registration.from_state_dict(d, device="cpu")
     jreg = JReg.from_state_dict(d)
     assert reg.extent_wh is None and reg.src_indices is None
     for k, v in jreg.state_dict().items():
         np.testing.assert_array_equal(reg.state_dict()[k], v, err_msg=k)
 
 
+@pytest.mark.parametrize("entry", ["from_state_dict", "load",
+                                   "cameras_create"])
+def test_default_device_needs_cuda(entry, tmp_path, monkeypatch):
+    """With no device given, state goes to CUDA or the call raises: a
+    registration never lands on the CPU unasked."""
+    d = make_registration_dict()
+    path = str(tmp_path / "reg.npz")
+    np.savez(path, **d)
+    call = {
+        "from_state_dict": lambda **kw: Registration.from_state_dict(d, **kw),
+        "load": lambda **kw: Registration.load(path, **kw),
+        "cameras_create": lambda **kw: Cameras.create(d["focal"], d["ppx"],
+                                                      d["ppy"], **kw),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    # asked for, the CPU works
+    got = call(device="cpu")
+    assert (got.focal if entry == "cameras_create" else got.xmaps).device \
+        == torch.device("cpu")
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in JAX or the JAX
     package, in a fresh interpreter."""
     mods = ["stitchingvideo_tpu_torch", "stitchingvideo_tpu_torch.config",
+            "stitchingvideo_tpu_torch.device",
             "stitchingvideo_tpu_torch.models.camera",
             "stitchingvideo_tpu_torch.models.registration",
             "stitchingvideo_tpu_torch.video.lut",
