@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -8,34 +8,46 @@ What it does, in phases (any failure exits non-zero):
   2. builds every CUDA kernel of the port from `stitchingvideo_tpu_torch/csrc`
      (one nvcc per source, all started together);
   3. builds the product-size synthetic rig in numpy: bench.py's 5-camera
-     cylindrical LUT (1080x1920 frames -> 1280x7168 panorama) with a few
-     tiles poisoned to span 3 cameras, so the fallback path is live, and
-     installs it with `VideoStitcher().install_lut`;
-  4. the main path, with every launch count set to 0 before and read after:
-     `composite` of one frame set, `composite_microbatch` at B=16 and B=32;
-     each kernel's output is held bit-exact against its plain PyTorch
-     version on the card (TF32 off), the single-frame output against the
-     exact gather oracle (median <= 1, >= 99.9% within 4), and batched
-     output against single output;
-  5. the band-shift copy `shift_planar_bn` through its own entry point, bit-
-     exact against its plain version;
-  6. times: micro-batch fps at B=16/32, B=1 latency p50/p95, and each
-     kernel's time beside its bound, its plain version's and a library
-     call's; printed as a `{"kernels": [...]}` line and a `{"metrics": ...}`
-     line, then the card line, then the last line
-     `{"ok": true, "device": {...}}`.
+     cylindrical LUT (1080x1920 frames -> 1280x7168 panorama), once with a
+     few tiles poisoned to span 3 cameras, so the mat2 fallback path is live,
+     and once without, for the kernels that take no fallback tile;
+  4. mat2 (`kernel='auto'`): `composite` of one frame set,
+     `composite_microbatch` at B=16 and B=32; then the band-shift copy
+     `shift_planar_bn` through its own entry point;
+  5. mat (`kernel='mat'`): `composite` and `composite_microbatch` at B=16 on
+     the un-poisoned rig; the output also equals mat2's on the same LUT;
+  6. tiled (`kernel='tiled'`): `composite`; and `remap_tiled` of one frame
+     through one camera's map against `composite_tiled` on that LUT;
+  7. feather (`compose_mode='feather'`): a product-size registration (5
+     cameras on the cylinder with overlapping ROIs, a few patches that bring
+     a third camera into a tile) is written as `.npz` into a temporary
+     directory and loaded with `load_registration`; `composite`,
+     `composite_feather_planar`, `composite_microbatch` at B=16; the output
+     is held to the exact dual gather within the reference's gates
+     (median 0, max <= 3, fallback tiles <= 1).
+  In every phase the launch counts are set to 0 before the main path and
+  read after it, each kernel's output is held bit-exact against its plain
+  PyTorch version on the card (TF32 off), batched output against single
+  output, and the seam-select outputs against the exact gather oracle.
+  8. times: each kernel's time beside its bound, its plain version's and,
+     where one PyTorch call computes the same function, that call's; printed
+     as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
+     card line, then the last line `{"ok": true, "device": {...}}`.
 
 Inputs are random, made from --seed; nothing is read from disk but the
-checkout itself.
+checkout itself and the registration file the script wrote.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -49,7 +61,8 @@ CUDA_CORE_OPS_PER_S = 67e12        # float32 outside the tensor cores
 FRAME_HW = (1080, 1920)
 PANO_HW = (1280, 7168)
 N_CAMS = 5
-TPU_SRC = "stitchingvideo_tpu/ops/pallas/composite_mat2.py"
+CSRC = "stitchingvideo_tpu_torch/csrc/"
+PALLAS = "stitchingvideo_tpu/ops/pallas/"
 
 
 def fail(msg: str) -> None:
@@ -66,11 +79,12 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def synthetic_lut(seed: int):
-    """bench.py's cylindrical 5-camera 360 LUT, in numpy, with four tiles
-    poisoned to span 3 cameras (not representable by two windows)."""
-    fh, fw = FRAME_HW
-    pano_h, pano_w = PANO_HW
+def synthetic_lut(seed: int, poison: bool, frame_hw=FRAME_HW,
+                  pano_hw=PANO_HW):
+    """bench.py's cylindrical 5-camera 360 LUT, in numpy; with `poison`,
+    four tiles span 3 cameras (not representable by two windows)."""
+    fh, fw = frame_hw
+    pano_h, pano_w = pano_hw
     xx = np.arange(pano_w, dtype=np.float32)[None, :]
     yy = np.arange(pano_h, dtype=np.float32)[:, None]
     theta = (xx / pano_w) * 2 * np.pi - np.pi
@@ -87,48 +101,145 @@ def synthetic_lut(seed: int):
     valid = (src_x >= 0) & (src_x < fw - 1) & (src_y >= 0) & (src_y < fh - 1)
     gain = (1.0 + 0.05 * np.sin(xx / 57.0)).astype(np.float32)
     cam = np.where(valid, cam, -1).astype(np.int32)
-    rng = np.random.default_rng(seed)
-    nty, ntx = pano_h // 8, pano_w // 128
-    for ty, tx in zip(rng.integers(nty // 8, nty * 7 // 8, 4),
-                      rng.integers(1, ntx - 1, 4)):
-        y, x = int(ty) * 8, int(tx) * 128
-        c = cam[y, x + 64]
-        cam[y:y + 2, x + 10:x + 20] = (c + 1) % N_CAMS
-        cam[y + 2:y + 4, x + 20:x + 30] = (c + 2) % N_CAMS
+    if poison:
+        rng = np.random.default_rng(seed)
+        nty, ntx = pano_h // 8, pano_w // 128
+        for ty, tx in zip(rng.integers(nty // 8, nty * 7 // 8, 4),
+                          rng.integers(1, ntx - 1, 4)):
+            y, x = int(ty) * 8, int(tx) * 128
+            c = cam[y, x + 64]
+            cam[y:y + 2, x + 10:x + 20] = (c + 1) % N_CAMS
+            cam[y + 2:y + 4, x + 20:x + 30] = (c + 2) % N_CAMS
     return (cam, np.broadcast_to(src_x, (pano_h, pano_w)).astype(np.float32),
             np.ascontiguousarray(src_y, np.float32),
             np.broadcast_to(gain, (pano_h, pano_w)).astype(np.float32))
 
 
-def mat2_needs(ml, m2) -> dict:
+def feather_registration(seed: int, frame_hw=FRAME_HW, step: int = 1400,
+                         width: int = 1588, canvas_h: int = 1600,
+                         f_src: float = 1100.0) -> dict:
+    """A registration in `Registration.state_dict`'s format, in numpy: 5
+    cameras a `step` apart on a cylinder, each seeing `width` canvas columns,
+    so neighbours overlap by width - step columns and both feather slots are
+    live across each overlap. Every camera owns all it sees (seam mask =
+    footprint). Each ROI is 2 * step + (width - step) wide, so that camera i
+    reaches the overlap of cameras i+1 and i+2: there a small patch of it is
+    valid, and its feather weight beats camera i+2's at that camera's edge,
+    which brings a third camera into those tiles (fallback tiles). With the
+    runtime's crop (10% top and bottom, 10 px left and right of the extent)
+    the defaults give the 1280x7168 panorama."""
+    rng = np.random.default_rng(seed)
+    fh, fw = frame_hw
+    Hr, Wr = canvas_h, step + width
+    extent_w = (N_CAMS - 1) * step + width
+    canvas_w = -(-extent_w // 64) * 64
+    f_pan = N_CAMS * step / (2 * np.pi)          # canvas columns a radian
+    xr = np.arange(Wr, dtype=np.float32)[None, :]
+    yr = np.arange(Hr, dtype=np.float32)[:, None]
+    # the ROI's first `width` columns are the camera's view; the rest is
+    # empty but for the patch
+    theta = np.where(xr < width, (xr - width / 2) / np.float32(f_pan), 0.0)
+    seen = np.broadcast_to(xr < width, (Hr, Wr))
+    tan, cos = np.tan(theta), np.cos(theta)
+    # vertical field chosen so the footprint stays inside the frame
+    v = (yr / Hr - 0.5) * np.float32(0.72 * fh / f_src)
+    xmaps, ymaps, valid, gains = [], [], [], []
+    for i in range(N_CAMS):
+        sx = np.where(seen, np.float32(f_src) * tan + fw / 2
+                      + np.float32(rng.uniform(0, 1)), 0.0)
+        sy = np.where(seen, np.float32(f_src) * v / cos + fh / 2
+                      + np.float32(rng.uniform(0, 1)), 0.0)
+        ok = seen & (sx >= 0) & (sx < fw - 1) & (sy >= 0) & (sy < fh - 1)
+        if i + 2 < N_CAMS:
+            # the patch: 8 rows x 24 columns at the left edge of camera i+2
+            y0, x0 = canvas_h // 4 + 96 * i + 3, 2 * step
+            patch = (slice(y0, y0 + 8), slice(x0, x0 + 24))
+            sx[patch] = fw / 2 + 0.37 * (xr[:, patch[1]] - x0) \
+                + 0.11 * (yr[patch[0]] - y0)
+            sy[patch] = fh / 2 + 0.53 * (yr[patch[0]] - y0) \
+                - 0.07 * (xr[:, patch[1]] - x0)
+            ok[patch] = True
+        xmaps.append(sx.astype(np.float32))
+        ymaps.append(sy.astype(np.float32))
+        valid.append(ok)
+        gains.append(np.broadcast_to(
+            (1.0 + 0.05 * np.sin(xr / (57.0 + i)) + 0.01 * i)
+            .astype(np.float32), (Hr, Wr)).copy())
+    valid = np.stack(valid)
+    R = np.stack([np.eye(3, dtype=np.float32)] * N_CAMS)
+    return {
+        "focal": np.full(N_CAMS, f_src, np.float32),
+        "aspect": np.ones(N_CAMS, np.float32),
+        "ppx": np.full(N_CAMS, fw / 2, np.float32),
+        "ppy": np.full(N_CAMS, fh / 2, np.float32),
+        "R": R, "t": np.zeros((N_CAMS, 3), np.float32),
+        "corners": np.asarray([(i * step, 0) for i in range(N_CAMS)],
+                              np.int32),
+        "valid": valid, "xmaps": np.stack(xmaps), "ymaps": np.stack(ymaps),
+        "seam_masks": valid.copy(), "gain_maps": np.stack(gains),
+        "canvas_wh": np.asarray((canvas_w, canvas_h)),
+        "extent_wh": np.asarray((extent_w, canvas_h)),
+        "roi_hw": np.asarray((Hr, Wr)),
+        "warp_kind": np.asarray("cylindrical"),
+        "warp_scale": np.asarray(float(f_pan)),
+        "src_indices": np.arange(N_CAMS),
+        "frame_hw": np.asarray(frame_hw, np.int32),
+    }
+
+
+def sector_bytes(torch, taps, frame_hw) -> int:
+    """Bytes of one frame set in the 32-byte sectors that the given taps
+    read: the distinct (cam, row, column // 32) over every (cam, x0, y0, x1,
+    y1) of `taps` (index tensors, second taps already clamped), times 3
+    channels (the planes are 32-byte aligned, so each channel reads the same
+    sectors)."""
+    fh, fw = frame_hw
+    if (fh * fw) % 32:
+        fail(f"frame planes of {fh}x{fw} bytes are not 32-byte aligned")
+    keys = [((cam.long() * fh + y.long()) * fw + x.long()) // 32
+            for cam, x0, y0, x1, y1 in taps for y in (y0, y1)
+            for x in (x0, x1)]
+    return 3 * 32 * int(torch.unique(torch.cat(keys)).numel())
+
+
+def int_taps(f: dict, frame_hw):
+    """(cam, x0, y0, x1, y1) of the kernel pixels of unpacked fields `f`."""
+    fh, fw = frame_hw
+    kern = f["cam"] >= 0
+    x0, y0 = f["x0"][kern], f["y0"][kern]
+    return (f["cam"][kern], x0, y0, (x0 + 1).clamp(max=fw - 1),
+            (y0 + 1).clamp(max=fh - 1))
+
+
+def float_taps(m2, cam, sx, sy, frame_hw):
+    """(cam, x0, y0, x1, y1) of the float gather at (sx, sy), cam >= 0."""
+    live = cam >= 0
+    x0, y0, x1, y1, _, _ = m2.bilinear_taps(sx[live], sy[live], *frame_hw)
+    return cam[live], x0, y0, x1, y1
+
+
+def bound(nbytes: float, ops: float):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mat2_needs(torch, ml, m2) -> dict:
     """What the mat2 function must read for this LUT, for its bound.
 
-    frame_bytes: bytes of one frame set in the 32-byte sectors that some
-      pixel's four clamped taps read, the distinct (cam, row, column // 32)
-      over kernel pixels and covered fallback pixels, times 3 channels (the
-      planes are 32-byte aligned, so each channel reads the same sectors);
+    frame_bytes: the sectors its taps touch (kernel pixels and covered
+      fallback pixels);
     lut_bytes: the LUT as the kernel reads it: tap_cw of every pixel; tap_xy
       and gc of a kernel pixel; tap_xy and fb_cam of a fallback pixel, and
       fb_sx, fb_sy, fb_gain of a covered one;
     kernel_px, fallback_px: pixels on the integer path and covered pixels on
       the float path."""
-    import torch
-    fh, fw = ml.frame_hw
-    if (fh * fw) % 32:
-        fail(f"frame planes of {fh}x{fw} bytes are not 32-byte aligned")
-    f = ml.fields()
-    kern = f["cam"] >= 0
-    fb_cov = ml.fb_cam >= 0
-    fx0, fy0, fx1, fy1, _, _ = m2.bilinear_taps(ml.fb_sx[fb_cov],
-                                                ml.fb_sy[fb_cov], fh, fw)
-    cam = torch.cat([f["cam"][kern].long(), ml.fb_cam[fb_cov].long()])
-    x0, y0 = f["x0"][kern].long(), f["y0"][kern].long()
-    xs = (torch.cat([x0, fx0]), torch.cat([(x0 + 1).clamp(max=fw - 1), fx1]))
-    ys = (torch.cat([y0, fy0]), torch.cat([(y0 + 1).clamp(max=fh - 1), fy1]))
-    sectors = torch.unique(torch.cat([((cam * fh + y) * fw + x) // 32
-                                      for y in ys for x in xs]))
-    n_kern, n_fb_cov = int(kern.sum()), int(fb_cov.sum())
-    return {"frame_bytes": 3 * 32 * int(sectors.numel()),
+    n_kern = int((ml.tap_cw >= 0).sum())
+    n_fb_cov = int((ml.fb_cam >= 0).sum())
+    taps = [int_taps(ml.fields(), ml.frame_hw),
+            float_taps(m2, ml.fb_cam, ml.fb_sx, ml.fb_sy, ml.frame_hw)]
+    return {"frame_bytes": sector_bytes(torch, taps, ml.frame_hw),
             "lut_bytes": (4 * ml.tap_cw.numel() + 8 * n_kern
                           + 8 * ml.fb_pix.numel() + 12 * n_fb_cov),
             "kernel_px": n_kern, "fallback_px": n_fb_cov}
@@ -148,6 +259,503 @@ def event_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def latency(torch, fn, n: int) -> dict:
+    """Host-clock time of fn() up to the end of its device work."""
+    ts = []
+    for _ in range(n + 2):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    ts = np.asarray(ts[2:])
+    return {"p50_ms": float(np.median(ts)),
+            "p95_ms": float(np.percentile(ts, 95)), "n": n}
+
+
+def max_err(a, b) -> int:
+    return int((a.int() - b.int()).abs().max())
+
+
+def chunked(fn, batch, step: int = 8):
+    """fn over a batch in chunks (the plain versions hold B-fold temporaries)."""
+    import torch
+    return torch.cat([fn(batch[b:b + step])
+                      for b in range(0, batch.shape[0], step)])
+
+
+def gather_gate(got_planar, oracle_planar, within: int, what: str):
+    """The reference's tolerance of a seam-select kernel against the exact
+    gather: median <= 1 and >= 99.9% within `within`."""
+    diff = (got_planar.int() - oracle_planar.int()).abs()
+    med = float(diff.float().median())
+    share = float((diff <= within).float().mean())
+    print(f"{what} vs gather oracle: median |diff| {med}, within {within}: "
+          f"{share:.6f}", flush=True)
+    if med > 1 or share < 0.999:
+        fail(f"{what} misses the gather oracle's tolerance")
+
+
+def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
+               bound_ms, bound_by, library_ms, **extra) -> dict:
+    if launches < 1:
+        fail(f"the main path never launched {kernel.name}")
+    if err:
+        fail(f"{kernel.name} != its plain version, max |diff| {err}")
+    return {"name": kernel.name, "route": "cuda", "source": CSRC + source,
+            "replaces": PALLAS + replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, **extra}
+
+
+def video_cfg(C, **video):
+    cfg = C.StitchConfig()
+    return cfg.replace(video=dataclasses.replace(cfg.video, **video))
+
+
+# -- mat2 (kernel='auto') and the band-shift copy ---------------------------
+
+def phase_mat2(C):
+    torch, m2, dev = C.torch, C.m2, C.dev
+    planar32, frames, frames_d = C.planar32, C.frames, C.frames_d
+    lut = C.CompositeLUT(*(torch.from_numpy(a)
+                           for a in synthetic_lut(C.seed, poison=True)))
+    vs = C.VideoStitcher()
+    t0 = time.perf_counter()
+    vs.install_lut(lut, FRAME_HW)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    if vs._tlut is None or vs._tlut[0] != "mat2":
+        fail(f"kernel='auto' built {vs._tlut and vs._tlut[0]}, not mat2")
+    ml = vs._tlut[1]
+    n_kernel_px = int((ml.tap_cw >= 0).sum())
+    print(f"mat2: install_lut {install_s:.3f} s; pano {ml.pano_hw}, "
+          f"{ml.n_fallback} fallback tiles ({ml.fb_pix.numel()} px), "
+          f"{n_kernel_px} kernel px", flush=True)
+    if ml.n_fallback == 0:
+        fail("the poisoned tiles did not become fallback tiles")
+
+    C.reset_counts()
+    pano1 = vs.composite(frames)
+    out16 = vs.composite_microbatch(planar32[:16])
+    out32 = vs.composite_microbatch(planar32)
+    torch.cuda.synchronize()
+    launches = C.read_counts()
+    print(f"mat2 main path launches: {launches}", flush=True)
+
+    planar1 = C.frames_to_planar_i8(frames_d)
+    plain1 = m2.composite_mat2_plain(planar1[None], ml)[0]
+    got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
+    err = {"single": max_err(got1, plain1)}
+    oracle = C.composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
+    gather_gate(got1, oracle, 4, "mat2")
+    fb = ml.fb_pix
+    if not torch.equal(got1.reshape(3, -1)[:, fb],
+                       oracle.reshape(3, -1)[:, fb]):
+        fail("fallback tiles are not bit-exact against the gather oracle")
+    plain32 = chunked(lambda p: m2.composite_mat2_plain(p, ml), planar32)
+    err["batched"] = max_err(out32, plain32)
+    del plain32
+    if not torch.equal(out16, out32[:16]):
+        fail("B=16 and B=32 outputs differ on the same frame sets")
+    for b in (0, 31):
+        if not torch.equal(m2.composite_mat2_planar(planar32[b], ml),
+                           out32[b]):
+            fail(f"batched output {b} differs from the single-frame output")
+    if not torch.equal(C.planar_to_hwc(got1).cpu(), torch.from_numpy(pano1)):
+        fail("planar_to_hwc round trip")
+    del out16, out32
+
+    # the band-shift copy, through its own entry point
+    planar16 = planar32[:16].contiguous()
+    C.reset_counts()
+    shifted = m2.shift_planar_bn(planar16)
+    torch.cuda.synchronize()
+    launches[m2.SHIFT_BN.name] = m2.SHIFT_BN.launches
+    err["shift"] = max_err(shifted, m2.shift_planar_bn_plain(planar16))
+    del shifted
+
+    # times: the wrappers as the main path calls them
+    Hp, Wp = ml.pano_hw
+    npix = Hp * Wp
+    need = mat2_needs(torch, ml, m2)
+    print(f"mat2 reads {need['frame_bytes']} of "
+          f"{N_CAMS * 3 * FRAME_HW[0] * FRAME_HW[1]} frame bytes a frame set "
+          f"(the sectors its taps touch) and {need['lut_bytes']} LUT bytes",
+          flush=True)
+
+    def mat2_bound(B):
+        # each input byte the function needs read once, each output written
+        # once: the frame sectors the taps touch, B times; the LUT as read;
+        # B*3 output planes. ~14 operations a pixel, channel and frame set
+        # on the integer path (4 int multiplies, 3 adds, convert, 3 float
+        # ops, round, 2 clamps), ~16 on the float path of a fallback pixel
+        return bound(B * need["frame_bytes"] + need["lut_bytes"]
+                     + B * 3 * npix,
+                     B * 3 * (14 * need["kernel_px"]
+                              + 16 * need["fallback_px"]))
+
+    rows = []
+    for k, B, tpu_line, fn in (
+            (m2.MAT2_SINGLE, 1, 388,
+             lambda: m2.composite_mat2_planar(planar32[0], ml)),
+            (m2.MAT2_BATCHED, 16, 624,
+             lambda: m2.composite_mat2_planar_batched(planar32[:16], ml))):
+        planar = planar32[:B]
+        rows.append(kernel_row(
+            k, "composite_mat2.cu", f"composite_mat2.py:{tpu_line}",
+            launches[k.name], err["single" if B == 1 else "batched"],
+            event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, lambda: m2.composite_mat2_plain(planar, ml),
+                     reps=2, warmup=1),
+            *mat2_bound(B),
+            # no one PyTorch call computes the integer-weight gather
+            library_ms=None, batch=B))
+    ms32 = event_ms(torch,
+                    lambda: m2.composite_mat2_planar_batched(planar32, ml),
+                    reps=5, warmup=1)
+
+    def library_shift():
+        tb = planar16.transpose(0, 1)
+        return torch.stack([torch.nn.functional.pad(tb[..., s:], (0, s))
+                            for s in range(0, 32 * m2.N_SHIFTS, 32)])
+
+    rows.append(kernel_row(
+        m2.SHIFT_BN, "shift_planar_bn.cu", "composite_mat2.py:869",
+        launches[m2.SHIFT_BN.name], err["shift"],
+        event_ms(torch, lambda: m2.shift_planar_bn(planar16), reps=10,
+                 warmup=2),
+        event_ms(torch, lambda: m2.shift_planar_bn_plain(planar16), reps=3),
+        planar16.numel() * (1 + m2.N_SHIFTS) / HBM_BYTES_PER_S * 1e3, "bytes",
+        library_ms=event_ms(torch, library_shift, reps=3),
+        batch=16, path="shift_planar_bn"))
+
+    fps, call = {}, {}
+    for B in (16, 32):
+        planar = planar32[:B]
+        # a micro-batch call's device time against the host's time to issue
+        # it (the kernel's own time is in the rows above)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            vs.composite_microbatch(planar)
+        issue_ms = (time.perf_counter() - t) / 10 * 1e3
+        ms = event_ms(torch, lambda: vs.composite_microbatch(planar), reps=10,
+                      warmup=2)
+        fps[f"b{B}"] = B / (ms / 1e3)
+        call[f"b{B}"] = {"call_ms": ms, "host_issue_ms": issue_ms}
+    metrics = {
+        "fps_microbatch": fps, "microbatch_call": call,
+        "b1_latency_host": latency(torch, lambda: vs.composite(frames), 20),
+        "b1_latency_device": latency(
+            torch, lambda: vs.composite_planar(frames_d), 20),
+        "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32": mat2_bound(32)[0],
+        "mat2_needs": need, "install_lut_s": install_s,
+    }
+    print("mat2: kernel outputs bit-exact against plain versions, batched "
+          "== single; shift_planar_bn bit-exact", flush=True)
+    return rows, metrics
+
+
+# -- mat (kernel='mat') ------------------------------------------------------
+
+def phase_mat(C):
+    torch, m2, mat, dev = C.torch, C.m2, C.mat, C.dev
+    planar16, frames, frames_d = C.planar32[:16], C.frames, C.frames_d
+    vs = C.VideoStitcher(video_cfg(C, kernel="mat"))
+    t0 = time.perf_counter()
+    vs.install_lut(C.clean_lut, FRAME_HW)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    if vs._tlut is None or vs._tlut[0] != "mat":
+        fail(f"kernel='mat' built {vs._tlut and vs._tlut[0]}, not mat")
+    ml = vs._tlut[1]
+
+    C.reset_counts()
+    pano1 = vs.composite(frames)
+    out16 = vs.composite_microbatch(planar16)
+    torch.cuda.synchronize()
+    launches = C.read_counts()
+    print(f"mat main path launches: {launches}", flush=True)
+
+    planar1 = C.frames_to_planar_i8(frames_d)
+    got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
+    err1 = max_err(got1, mat.composite_mat_plain(planar1[None], ml)[0])
+    err16 = max_err(out16, chunked(lambda p: mat.composite_mat_plain(p, ml),
+                                   planar16))
+    for b in (0, 15):
+        if not torch.equal(mat.composite_mat_planar(planar16[b], ml),
+                           out16[b]):
+            fail(f"mat batched output {b} differs from the single-frame one")
+    # without fallback tiles, mat and mat2 are one function
+    ml2 = m2.build_mat2_lut(vs._lut, FRAME_HW)
+    if not torch.equal(m2.composite_mat2_planar(planar1, ml2), got1) or \
+            not torch.equal(m2.composite_mat2_planar_batched(planar16, ml2),
+                            out16):
+        fail("mat output differs from mat2 output on the same LUT")
+    del ml2, out16
+    oracle = C.composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
+    gather_gate(got1, oracle, 4, "mat")
+
+    Hp, Wp = ml.pano_hw
+    npix = Hp * Wp
+    n_kern = int((ml.tap_cw >= 0).sum())
+    frame_bytes = sector_bytes(torch, [int_taps(ml.fields(), ml.frame_hw)],
+                               ml.frame_hw)
+    lut_bytes = 4 * npix + 8 * n_kern     # tap_cw; tap_xy, gc where covered
+
+    def mat_bound(B):
+        return bound(B * frame_bytes + lut_bytes + B * 3 * npix,
+                     B * 3 * 14 * n_kern)
+
+    rows = []
+    for k, B, err, fn in (
+            (mat.MAT_SINGLE, 1, err1,
+             lambda: mat.composite_mat_planar(planar16[0], ml)),
+            (mat.MAT_BATCHED, 16, err16,
+             lambda: mat.composite_mat_planar_batched(planar16, ml))):
+        planar = planar16[:B]
+        rows.append(kernel_row(
+            k, "composite_mat.cu", "composite_mat.py:150", launches[k.name],
+            err, event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, lambda: mat.composite_mat_plain(planar, ml),
+                     reps=2, warmup=1),
+            *mat_bound(B),
+            # no one PyTorch call computes the integer-weight gather
+            library_ms=None, batch=B))
+    ms16 = event_ms(torch, lambda: vs.composite_microbatch(planar16), reps=10,
+                    warmup=2)
+    metrics = {
+        "fps_microbatch_b16": 16 / (ms16 / 1e3),
+        "b1_latency_device": latency(
+            torch, lambda: vs.composite_planar(frames_d), 20),
+        "install_lut_s": install_s,
+        "needs": {"frame_bytes": frame_bytes, "lut_bytes": lut_bytes,
+                  "kernel_px": n_kern},
+    }
+    print("mat: kernel outputs bit-exact against the plain version and "
+          "against mat2, batched == single", flush=True)
+    return rows, metrics
+
+
+# -- tiled (kernel='tiled') --------------------------------------------------
+
+def phase_tiled(C):
+    torch, tiled, dev = C.torch, C.tiled, C.dev
+    frames, frames_d = C.frames, C.frames_d
+    vs = C.VideoStitcher(video_cfg(C, kernel="tiled"))
+    t0 = time.perf_counter()
+    vs.install_lut(C.clean_lut, FRAME_HW)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    if vs._tlut is None or vs._tlut[0] != "tiled":
+        fail(f"kernel='tiled' built {vs._tlut and vs._tlut[0]}, not tiled")
+    tl = vs._tlut[1]
+
+    C.reset_counts()
+    pano1 = vs.composite(frames)
+    torch.cuda.synchronize()
+    launches = C.read_counts()
+    print(f"tiled main path launches: {launches}", flush=True)
+
+    planar_u8 = frames_d.permute(0, 3, 1, 2).contiguous()
+    got1 = torch.from_numpy(pano1).to(dev)
+    err1 = max_err(got1, tiled.composite_tiled_plain(planar_u8, tl))
+    oracle = C.composite_frame_u8(frames_d, vs._lut)
+    diff = (got1.int() - oracle.int()).abs().float()
+    med, mean = float(diff.median()), float(diff.mean())
+    within3 = float((diff <= 3).float().mean())
+    print(f"tiled vs gather oracle: median |diff| {med}, mean {mean:.4f}, "
+          f"within 3: {within3:.6f}", flush=True)
+    if med > 1 or mean >= 1.0 or within3 <= 0.999:
+        fail("tiled misses the gather oracle's tolerance")
+    del oracle, diff
+
+    # remap_tiled: one frame through one camera's map is composite_tiled on
+    # that one-camera LUT
+    lut = vs._lut
+    own = lut.cam_idx == 2
+    zero, minus = torch.zeros((), device=dev), torch.full((), -1.0, device=dev)
+    xmap = torch.where(own, lut.src_x, minus)
+    ymap = torch.where(own, lut.src_y, minus)
+    before = tiled.TILED.launches
+    warped = C.remap_tiled(frames_d[2], xmap, ymap)
+    if warped is None or tiled.TILED.launches != before + 1:
+        fail("remap_tiled did not go through the tiled kernel")
+    one = C.CompositeLUT(cam_idx=torch.where(own, 0, -1).to(torch.int32),
+                         src_x=torch.where(own, lut.src_x, zero),
+                         src_y=torch.where(own, lut.src_y, zero),
+                         gain=torch.ones_like(lut.gain))
+    one_tl = tiled.build_tiled_lut(one, FRAME_HW)
+    if not torch.equal(warped, tiled.composite_tiled(frames_d[2:3], one_tl)) \
+            or not torch.equal(warped, tiled.composite_tiled_plain(
+                planar_u8[2:3].contiguous(), one_tl)):
+        fail("remap_tiled differs from composite_tiled on the one-camera LUT")
+    if int(warped[own].int().sum()) == 0 or int(warped[~own].int().sum()):
+        fail("remap_tiled: empty inside the map or not 0 outside it")
+    del warped, one, one_tl
+
+    Hp, Wp = tl.pano_hw
+    covered = tl.cidx >= 0
+    n_cov = int(covered.sum())
+    x0 = torch.floor(tl.sx[covered]).long()
+    y0 = torch.floor(tl.sy[covered]).long()
+    frame_bytes = sector_bytes(
+        torch, [(tl.cidx[covered], x0, y0,
+                 (x0 + 1).clamp(max=FRAME_HW[1] - 1),
+                 (y0 + 1).clamp(max=FRAME_HW[0] - 1))], FRAME_HW)
+    # cidx of every tile pixel; sx, sy, gain of a covered one
+    lut_bytes = 4 * tl.cidx.numel() + 12 * n_cov
+    # a pixel: ~20 operations for its four hats, then a channel ~17 (4
+    # converts, 7 multiplies, 3 adds, round, 2 clamps)
+    bound_ms, bound_by = bound(frame_bytes + lut_bytes + 3 * Hp * Wp,
+                               n_cov * (20 + 3 * 17))
+    rows = [kernel_row(
+        tiled.TILED, "composite_tiled.cu", "composite.py:173",
+        launches[tiled.TILED.name], err1,
+        event_ms(torch, lambda: tiled.composite_tiled_planar(planar_u8, tl),
+                 reps=10, warmup=2),
+        event_ms(torch, lambda: tiled.composite_tiled_plain(planar_u8, tl),
+                 reps=2, warmup=1),
+        bound_ms, bound_by,
+        # grid_sample interpolates one image with float32 weights; no one
+        # PyTorch call selects a camera per pixel with bfloat16 x-weights
+        library_ms=None, batch=1)]
+    metrics = {
+        "b1_latency_device": latency(
+            torch, lambda: vs.composite_planar(frames_d), 20),
+        "install_lut_s": install_s,
+        "needs": {"frame_bytes": frame_bytes, "lut_bytes": lut_bytes,
+                  "covered_px": n_cov},
+    }
+    print("tiled: kernel output bit-exact against the plain version; "
+          "remap_tiled == composite_tiled", flush=True)
+    return rows, metrics
+
+
+# -- feather (compose_mode='feather') ----------------------------------------
+
+def phase_feather(C):
+    torch, m2, fe, dev = C.torch, C.m2, C.fe, C.dev
+    planar16, frames, frames_d = C.planar32[:16], C.frames, C.frames_d
+    t0 = time.perf_counter()
+    state = feather_registration(C.seed)
+    rig_s = time.perf_counter() - t0
+    vs = C.VideoStitcher(video_cfg(C, compose_mode="feather"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "registration.npz")
+        with open(path, "wb") as f:
+            np.savez(f, **state)
+        del state
+        t0 = time.perf_counter()
+        vs.load_registration(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if vs._ftlut is None or vs._ftlut[0] != "fmat" or vs._tlut is not None:
+        fail("compose_mode='feather' did not build the feather state alone")
+    ml = vs._ftlut[1]
+    if ml.pano_hw != PANO_HW:
+        fail(f"feather panorama is {ml.pano_hw}, not {PANO_HW}")
+    t0 = time.perf_counter()
+    vs._build_feather(vs._reg, FRAME_HW, vs._out_shape)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    npix = PANO_HW[0] * PANO_HW[1]
+    live = ml.tap_cw >= 0
+    n_live = [int(live[s].sum()) for s in range(2)]
+    two_slot = float((live[0] & live[1]).float().mean())
+    fb_share = ml.fb_pix.numel() / npix
+    print(f"feather: rig {rig_s:.2f} s; load_registration {load_s:.3f} s; "
+          f"build_feather_state {build_s:.3f} s; pano {ml.pano_hw}; two-slot "
+          f"pixels {two_slot:.6f}; fallback tiles {ml.n_fallback} "
+          f"({fb_share:.6f} of the pixels)", flush=True)
+    if two_slot == 0 or fb_share == 0:
+        fail("the feather rig has no two-slot pixels or no fallback tiles")
+
+    C.reset_counts()
+    pano1 = vs.composite(frames)
+    planar_out = vs.composite_feather_planar(frames_d)
+    out16 = vs.composite_microbatch(planar16)
+    torch.cuda.synchronize()
+    launches = C.read_counts()
+    print(f"feather main path launches: {launches}", flush=True)
+
+    planar1 = C.frames_to_planar_i8(frames_d)
+    got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
+    if not torch.equal(got1, planar_out):
+        fail("composite and composite_feather_planar differ")
+    err1 = max_err(got1, fe.composite_feather_plain(planar1[None], ml)[0])
+    err16 = max_err(out16, chunked(
+        lambda p: fe.composite_feather_plain(p, ml), planar16, step=4))
+    for b in (0, 15):
+        if not torch.equal(fe.composite_feather_planar(planar16[b], ml),
+                           out16[b]):
+            fail(f"feather batched output {b} differs from the single one")
+    del out16, planar_out
+    # the exact dual gather, with the reference's gates
+    blut = vs._blend_lut(vs._reg, vs._out_shape)
+    oracle = torch.round(fe.composite_blend_gather(frames_d, blut)) \
+        .clamp(0, 255).to(torch.uint8).permute(2, 0, 1)
+    diff = (got1.int() - oracle.int()).abs()
+    med, worst = float(diff.float().median()), int(diff.max())
+    fb_worst = int(diff.reshape(3, -1)[:, ml.fb_pix].max())
+    print(f"feather vs dual-gather oracle: median |diff| {med}, max {worst}, "
+          f"max on fallback tiles {fb_worst}", flush=True)
+    if med != 0 or worst > 3 or fb_worst > 1:
+        fail("feather misses the dual-gather oracle's gates")
+    del blut, oracle, diff
+
+    taps = [int_taps(ml.fields(s), ml.frame_hw) for s in range(2)]
+    taps += [float_taps(m2, ml.fb_cam[:, s], ml.fb_sx[:, s], ml.fb_sy[:, s],
+                        ml.frame_hw) for s in range(2)]
+    frame_bytes = sector_bytes(torch, taps, ml.frame_hw)
+    del taps
+    n_fb = ml.fb_pix.numel()
+    n_fb_live = int((ml.fb_cam >= 0).sum())
+    # tap_cw of both slots (slot 0's alone on a fallback pixel); tap_xy and
+    # gw of a live slot; tap_xy and the four fb_* entries of both slots of a
+    # fallback pixel
+    state_bytes = 8 * npix - 4 * n_fb + 8 * sum(n_live) + 36 * n_fb
+
+    def feather_bound(B):
+        # a live slot ~12 operations a channel and frame set, a pixel's tail
+        # 4; a fallback pixel's live slot ~14
+        return bound(B * frame_bytes + state_bytes + B * 3 * npix,
+                     B * 3 * (12 * sum(n_live) + 4 * npix + 14 * n_fb_live))
+
+    rows = []
+    for k, B, err, fn in (
+            (fe.FEATHER_SINGLE, 1, err1,
+             lambda: fe.composite_feather_planar(planar16[0], ml)),
+            (fe.FEATHER_BATCHED, 16, err16,
+             lambda: fe.composite_feather_planar_batched(planar16, ml))):
+        planar = planar16[:B]
+        rows.append(kernel_row(
+            k, "composite_feather.cu", "composite_feather.py:354",
+            launches[k.name], err, event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, lambda: fe.composite_feather_plain(planar, ml),
+                     reps=1, warmup=1),
+            *feather_bound(B),
+            # no one PyTorch call computes the dual integer-weight gather
+            library_ms=None, batch=B))
+    ms16 = event_ms(torch, lambda: vs.composite_microbatch(planar16), reps=10,
+                    warmup=2)
+    metrics = {
+        "fps_microbatch_b16": 16 / (ms16 / 1e3), "microbatch_call_ms": ms16,
+        "b1_latency_host": latency(torch, lambda: vs.composite(frames), 10),
+        "b1_latency_device": latency(
+            torch, lambda: vs.composite_feather_planar(frames_d), 20),
+        "build_feather_state_s": build_s, "load_registration_s": load_s,
+        "two_slot_share": two_slot, "fallback_share": fb_share,
+        "fallback_tiles": ml.n_fallback,
+        "needs": {"frame_bytes": frame_bytes, "state_bytes": state_bytes,
+                  "live_slot_px": n_live, "fallback_px": n_fb},
+    }
+    print("feather: kernel outputs bit-exact against the plain version, "
+          "batched == single", flush=True)
+    return rows, metrics
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -160,18 +768,26 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     try:
-        from stitchingvideo_tpu_torch import VideoStitcher
+        from stitchingvideo_tpu_torch import StitchConfig, VideoStitcher
         from stitchingvideo_tpu_torch.ops import _cuda
+        from stitchingvideo_tpu_torch.ops import composite as tiled
+        from stitchingvideo_tpu_torch.ops import composite_feather as fe
+        from stitchingvideo_tpu_torch.ops import composite_mat as mat
         from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
-        from stitchingvideo_tpu_torch.ops.composite_mat import (
-            frames_to_planar_i8, planar_to_hwc)
+        from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
         from stitchingvideo_tpu_torch.video.lut import (CompositeLUT,
                                                         composite_frame_u8)
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = (m2.MAT2_SINGLE, m2.MAT2_BATCHED, m2.SHIFT_BN)
+    kernels = (m2.MAT2_SINGLE, m2.MAT2_BATCHED, m2.SHIFT_BN, mat.MAT_SINGLE,
+               mat.MAT_BATCHED, tiled.TILED, fe.FEATHER_SINGLE,
+               fe.FEATHER_BATCHED)
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
 
     # -- 1. the card ---------------------------------------------------
     card = card_line()
@@ -188,196 +804,38 @@ def main() -> None:
 
     # -- 3. the rig ----------------------------------------------------
     t0 = time.perf_counter()
-    cam, sx, sy, gain = synthetic_lut(args.seed)
-    lut = CompositeLUT(*(torch.from_numpy(a) for a in (cam, sx, sy, gain)))
     rng = np.random.default_rng(args.seed + 1)
     frames = list(rng.integers(0, 256, (N_CAMS,) + FRAME_HW + (3,),
                                dtype=np.uint8))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    planar32 = torch.randint(-128, 128, (32, N_CAMS, 3) + FRAME_HW,
-                             dtype=torch.int8, device=dev, generator=gen)
-    rig_s = time.perf_counter() - t0
-    vs = VideoStitcher()
-    t0 = time.perf_counter()
-    vs.install_lut(lut, FRAME_HW)
-    torch.cuda.synchronize()
-    install_s = time.perf_counter() - t0
-    ml = vs._tlut[1]
-    n_kernel_px = int((ml.tap_cw >= 0).sum())
-    print(f"rig: {rig_s:.2f} s; install_lut: {install_s:.3f} s; pano "
-          f"{ml.pano_hw}, {ml.n_fallback} fallback tiles "
-          f"({ml.fb_pix.numel()} px), {n_kernel_px} kernel px", flush=True)
-    if ml.n_fallback == 0:
-        fail("the poisoned tiles did not become fallback tiles")
+    C = types.SimpleNamespace(
+        torch=torch, dev=dev, seed=args.seed, m2=m2, mat=mat, tiled=tiled,
+        fe=fe, StitchConfig=StitchConfig, VideoStitcher=VideoStitcher,
+        CompositeLUT=CompositeLUT, composite_frame_u8=composite_frame_u8,
+        frames_to_planar_i8=mat.frames_to_planar_i8,
+        planar_to_hwc=mat.planar_to_hwc, remap_tiled=remap_tiled,
+        reset_counts=reset_counts,
+        read_counts=lambda: {k.name: k.launches for k in kernels},
+        frames=frames, frames_d=torch.from_numpy(np.stack(frames)).to(dev),
+        planar32=torch.randint(-128, 128, (32, N_CAMS, 3) + FRAME_HW,
+                               dtype=torch.int8, device=dev, generator=gen),
+        clean_lut=CompositeLUT(*(torch.from_numpy(a) for a in
+                                 synthetic_lut(args.seed, poison=False))))
+    print(f"rig: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # -- 4. the main path ----------------------------------------------
-    for k in kernels:
-        k.launches = 0
-    pano1 = vs.composite(frames)
-    out16 = vs.composite_microbatch(planar32[:16])
-    out32 = vs.composite_microbatch(planar32)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
-    print(f"main path launches: {launches}", flush=True)
-    for k in (m2.MAT2_SINGLE, m2.MAT2_BATCHED):
-        if launches[k.name] == 0:
-            fail(f"the main path never launched {k.name}")
-
-    frames_d = torch.from_numpy(np.stack(frames)).to(dev)
-    planar1 = frames_to_planar_i8(frames_d)
-    plain1 = m2.composite_mat2_plain(planar1[None], ml)[0]
-    got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
-    err = {"single": int((got1.int() - plain1.int()).abs().max())}
-    if err["single"]:
-        fail(f"composite != plain version, max |diff| {err['single']}")
-    oracle = composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
-    diff = (got1.int() - oracle.int()).abs()
-    med, within4 = float(diff.float().median()), float((diff <= 4).float()
-                                                         .mean())
-    print(f"vs gather oracle: median |diff| {med}, within 4: {within4:.6f}",
-          flush=True)
-    if med > 1 or within4 < 0.999:
-        fail("composite misses the gather oracle's tolerance")
-    fb = ml.fb_pix
-    if not torch.equal(got1.reshape(3, -1)[:, fb],
-                       oracle.reshape(3, -1)[:, fb]):
-        fail("fallback tiles are not bit-exact against the gather oracle")
-    plain32 = torch.stack([m2.composite_mat2_plain(planar32[b:b + 8], ml)
-                           for b in range(0, 32, 8)]).reshape(out32.shape)
-    err["batched"] = int((out32.int() - plain32.int()).abs().max())
-    if err["batched"]:
-        fail(f"batched kernel != plain version, max |diff| {err['batched']}")
-    if not torch.equal(out16, out32[:16]):
-        fail("B=16 and B=32 outputs differ on the same frame sets")
-    for b in (0, 31):
-        if not torch.equal(m2.composite_mat2_planar(planar32[b], ml),
-                           out32[b]):
-            fail(f"batched output {b} differs from the single-frame output")
-    if not torch.equal(planar_to_hwc(got1).cpu(), torch.from_numpy(pano1)):
-        fail("planar_to_hwc round trip")
-    print("main path: kernel outputs bit-exact against plain versions, "
-          "batched == single", flush=True)
-
-    # -- 5. the band-shift copy, through its own entry point ------------
-    planar16 = planar32[:16].contiguous()
-    m2.SHIFT_BN.launches = 0
-    shifted = m2.shift_planar_bn(planar16)
-    torch.cuda.synchronize()
-    launches[m2.SHIFT_BN.name] = m2.SHIFT_BN.launches
-    if launches[m2.SHIFT_BN.name] == 0:
-        fail("shift_planar_bn never launched its kernel")
-    shifted_plain = m2.shift_planar_bn_plain(planar16)
-    err["shift"] = int((shifted.int() - shifted_plain.int()).abs().max())
-    if err["shift"]:
-        fail(f"shift_planar_bn != plain version, max |diff| {err['shift']}")
-    del shifted, shifted_plain
-    print("shift_planar_bn: bit-exact against its plain version", flush=True)
-
-    # -- 6. times ------------------------------------------------------
-    # the wrappers are timed as the main path calls them; their launch
-    # counts were read in phase 4
-    Hp, Wp = ml.pano_hw
-    npix = Hp * Wp
-    fh, fw = FRAME_HW
-    need = mat2_needs(ml, m2)
-    print(f"mat2 reads {need['frame_bytes']} of {N_CAMS * 3 * fh * fw} "
-          f"frame bytes a frame set (the sectors its taps touch) and "
-          f"{need['lut_bytes']} LUT bytes", flush=True)
-
-    def mat2_bound(B):
-        # each input byte the function needs read once, each output written
-        # once: the frame sectors the taps touch, B times; the LUT as read;
-        # B*3 output planes. ~14 operations a pixel, channel and frame set
-        # on the integer path (4 int multiplies, 3 adds, convert, 3 float
-        # ops, round, 2 clamps), ~16 on the float path of a fallback pixel
-        nbytes = B * need["frame_bytes"] + need["lut_bytes"] + B * 3 * npix
-        ops = B * 3 * (14 * need["kernel_px"] + 16 * need["fallback_px"])
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
-    rows = []
-    for k, B, tpu_line, fn in (
-            (m2.MAT2_SINGLE, 1, 388,
-             lambda: m2.composite_mat2_planar(planar32[0], ml)),
-            (m2.MAT2_BATCHED, 16, 624,
-             lambda: m2.composite_mat2_planar_batched(planar32[:16], ml))):
-        planar = planar32[:B]
-        ms = event_ms(torch, fn, reps=20, warmup=2)
-        plain_ms = event_ms(torch, lambda: m2.composite_mat2_plain(planar, ml),
-                            reps=2, warmup=1)
-        bound_ms, bound_by = mat2_bound(B)
-        rows.append({
-            "name": k.name, "route": "cuda",
-            "source": "stitchingvideo_tpu_torch/csrc/composite_mat2.cu",
-            "replaces": f"{TPU_SRC}:{tpu_line}",
-            "launches": launches[k.name],
-            "max_abs_err": err["single" if B == 1 else "batched"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            # no one PyTorch call computes the integer-weight gather
-            "library_ms": None, "batch": B})
-    ms32 = event_ms(torch,
-                    lambda: m2.composite_mat2_planar_batched(planar32, ml),
-                    reps=10, warmup=1)
-
-    def library_shift():
-        tb = planar16.transpose(0, 1)
-        return torch.stack([torch.nn.functional.pad(tb[..., s:], (0, s))
-                            for s in range(0, 32 * m2.N_SHIFTS, 32)])
-
-    sh_bytes = planar16.numel() * (1 + m2.N_SHIFTS)
-    rows.append({
-        "name": m2.SHIFT_BN.name, "route": "cuda",
-        "source": "stitchingvideo_tpu_torch/csrc/shift_planar_bn.cu",
-        "replaces": f"{TPU_SRC}:869",
-        "launches": launches[m2.SHIFT_BN.name], "max_abs_err": err["shift"],
-        "ms": event_ms(torch, lambda: m2.shift_planar_bn(planar16), reps=20,
-                       warmup=2),
-        "plain_ms": event_ms(torch, lambda: m2.shift_planar_bn_plain(planar16),
-                             reps=5),
-        "bound_ms": sh_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": event_ms(torch, library_shift, reps=5),
-        "batch": 16, "path": "shift_planar_bn"})
-
-    fps, call = {}, {}
-    for B in (16, 32):
-        planar = planar32[:B]
-        # a micro-batch call's device time against the host's time to issue
-        # it (the kernel's own time is in the rows above)
+    # -- 4-7. the paths ------------------------------------------------
+    rows, metrics = [], {"card": card, "kind": kind, "build_s": build_s}
+    for name, phase in (("mat2", phase_mat2), ("mat", phase_mat),
+                        ("tiled", phase_tiled), ("feather", phase_feather)):
+        t0 = time.perf_counter()
+        phase_rows, metrics[name] = phase(C)
+        rows += phase_rows
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(10):
-            vs.composite_microbatch(planar)
-        issue_ms = (time.perf_counter() - t) / 10 * 1e3
-        ms = event_ms(torch, lambda: vs.composite_microbatch(planar), reps=10,
-                      warmup=2)
-        fps[f"b{B}"] = B / (ms / 1e3)
-        call[f"b{B}"] = {"call_ms": ms, "host_issue_ms": issue_ms}
+        torch.cuda.empty_cache()
+        print(f"{name}: phase took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    metrics["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    def latency(fn, n):
-        ts = []
-        for _ in range(n + 2):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
-        ts = np.asarray(ts[2:])
-        return {"p50_ms": float(np.median(ts)),
-                "p95_ms": float(np.percentile(ts, 95)), "n": n}
-
-    metrics = {
-        "card": card, "kind": kind,
-        "fps_microbatch": fps, "microbatch_call": call,
-        "b1_latency_host": latency(lambda: vs.composite(frames), 40),
-        "b1_latency_device": latency(lambda: vs.composite_planar(frames_d),
-                                     40),
-        "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32": mat2_bound(32)[0],
-        "mat2_needs": need,
-        "build_s": build_s, "install_lut_s": install_s,
-        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"metrics": metrics}), flush=True)
     print(card_line(), flush=True)

@@ -1,10 +1,11 @@
 """stitchingvideo_tpu_torch — the PyTorch + CUDA port of stitchingvideo_tpu.
 
-The seam-select video hot loop (`compose_mode='lut'`, the mat2 kernel) runs
-on an NVIDIA H100 through kernels written by hand in `csrc/`. Registration is
-taken as state: a `Registration` `.npz` that the JAX package wrote
-(`VideoStitcher.load_registration`), or a `CompositeLUT` handed to
-`VideoStitcher.install_lut`.
+The video hot loop runs on an NVIDIA H100 through kernels written by hand in
+`csrc/`: the seam-select mode (`compose_mode='lut'`) with its `mat2`, `mat`
+and `tiled` kernels, and the feather mode (`compose_mode='feather'`).
+Registration is taken as state: a `Registration` `.npz` that the JAX package
+wrote (`VideoStitcher.load_registration`), or a `CompositeLUT` (and, for
+feather, the `Registration`) handed to `VideoStitcher.install_lut`.
 
 The package imports torch and numpy only. CUDA sources are compiled with
 nvcc on first use, so the package imports on a machine without a GPU; its

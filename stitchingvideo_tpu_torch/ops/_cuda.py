@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each `csrc/*.cu` holds one kernel behind a plain C launch function
+Each `csrc/*.cu` holds one kernel (and the device functions it calls) behind
+a plain C launch function
 (`<stem>_launch`, returning the `cudaError_t` of the launch) and an error
 string helper (`<stem>_error_string`). A source is compiled for Hopper
 (`sm_90a`) on first use, into `_build/` beside the package, under a name
@@ -128,4 +129,14 @@ COMPOSITE_MAT2 = KernelLibrary("composite_mat2", [_P] * 9 +
 # src, dst, B, N, rows (= 3*H), W, stream
 SHIFT_PLANAR_BN = KernelLibrary("shift_planar_bn",
                                 [_P, _P, _I, _I, _I, _I, _P])
-LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN)
+# frames, tap_xy, tap_cw, gc, out, B, N, H, W, npix, stream
+COMPOSITE_MAT = KernelLibrary("composite_mat", [_P] * 5 +
+                              [_I, _I, _I, _I, _L, _P])
+# frames, sx, sy, gain, cidx, out, N, H, W, ntx, T, Hp, Wp, stream
+COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])
+# frames, tap_xy, tap_cw, gw (each [2, npix]), fb_cam, fb_sx, fb_sy, fb_gw
+# (each [F, 2]), out, B, N, H, W, npix, stream
+COMPOSITE_FEATHER = KernelLibrary("composite_feather", [_P] * 9 +
+                                  [_I, _I, _I, _I, _L, _P])
+LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN, COMPOSITE_MAT, COMPOSITE_TILED,
+             COMPOSITE_FEATHER)

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .composite import (BAND_STEP, P, TILE_H, TILE_W, VXW, WIN_W, TiledLUT,
-                        build_tiled_lut)
+from .composite import (BAND_STEP, P, VXW, WIN_W, TiledLUT, build_tiled_lut,
+                        untile)
 
 WEIGHT = 127                              # int8 weight scale of one axis
 UNCOVERED, FALLBACK = -1, -2              # tap_cw of pixels off the int path
@@ -80,13 +80,28 @@ class MatLUT2:
         return self.tap_cw.device
 
     def fields(self) -> dict:
-        """Unpacked per-pixel fields: cam (-1 where not a kernel pixel), x0,
-        y0, a, ay, all [Hp*Wp] int32."""
-        cw, xy = self.tap_cw, self.tap_xy
-        kern = cw >= 0
-        return dict(cam=torch.where(kern, cw >> 16, -1),
-                    x0=xy & 0xFFFF, y0=xy >> 16,
-                    a=(cw >> 8) & 0xFF, ay=cw & 0xFF)
+        return unpack_taps(self.tap_xy, self.tap_cw)
+
+
+def pack_taps(cam, x0, a, y0, ay):
+    """(tap_xy, tap_cw) int32 words of a tap origin, its camera and its two
+    first-tap weights."""
+    return (y0 << 16) | x0, (cam << 16) | (a << 8) | ay
+
+
+def unpack_taps(tap_xy: torch.Tensor, tap_cw: torch.Tensor) -> dict:
+    """Unpacked per-pixel fields: cam (-1 where not a kernel pixel), x0, y0,
+    a, ay, all int32."""
+    kern = tap_cw >= 0
+    return dict(cam=torch.where(kern, tap_cw >> 16, -1),
+                x0=tap_xy & 0xFFFF, y0=tap_xy >> 16,
+                a=(tap_cw >> 8) & 0xFF, ay=tap_cw & 0xFF)
+
+
+def check_packable(frame_hw) -> None:
+    if frame_hw[0] >= 1 << 15 or frame_hw[1] >= 1 << 16:
+        raise ValueError(f"frames {tuple(frame_hw)} too large for the packed "
+                         "16-bit tap coordinates")
 
 
 def _taps(s: torch.Tensor):
@@ -103,35 +118,31 @@ def build_mat2_lut(lut, frame_hw: Tuple[int, int]) -> MatLUT2:
 
 def _materialize2(tlut: TiledLUT) -> MatLUT2:
     fh, fw = tlut.frame_hw
-    if fh >= 1 << 15 or fw >= 1 << 16:
-        raise ValueError(f"frames {tlut.frame_hw} too large for the packed "
-                         "16-bit tap coordinates")
-    nty, ntx = tlut.grid_hw
+    check_packable(tlut.frame_hw)
     Hp, Wp = tlut.pano_hw
-    T = nty * ntx
+    T = tlut.sx.shape[0]
 
-    def untile(a):
-        return a.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3) \
-                .reshape(nty * TILE_H, ntx * TILE_W)[:Hp, :Wp].reshape(-1)
+    def flat(a):
+        return untile(a, tlut.grid_hw, tlut.pano_hw).reshape(-1)
 
-    cam = untile(tlut.cidx)
-    sx, sy, gain = untile(tlut.sx), untile(tlut.sy), untile(tlut.gain)
-    fb = untile(tlut.fallback[:, None].expand(T, P))
+    cam = flat(tlut.cidx)
+    sx, sy, gain = flat(tlut.sx), flat(tlut.sy), flat(tlut.gain)
+    fb = flat(tlut.fallback[:, None].expand(T, P))
     covered = cam >= 0
     x0, a = _taps(sx)
     y0, ay = _taps(sy)
-    tap_cw = torch.where(covered, (cam << 16) | (a << 8) | ay, UNCOVERED)
+    tap_xy, tap_cw = pack_taps(cam, x0, a, y0, ay)
+    tap_cw = torch.where(covered, tap_cw, UNCOVERED)
     tap_cw = torch.where(fb, FALLBACK, tap_cw)
     fb_index = (torch.cumsum(fb, 0, dtype=torch.int32) - 1)
-    tap_xy = torch.where(fb, fb_index, (y0 << 16) | x0)
+    tap_xy = torch.where(fb, fb_index, tap_xy)
     fb_pix = torch.nonzero(fb).reshape(-1)
     return MatLUT2(
         tap_xy=tap_xy.contiguous(), tap_cw=tap_cw.contiguous(),
         gc=(gain * covered.to(torch.float32)).contiguous(),
         fb_pix=fb_pix, fb_cam=cam[fb_pix], fb_sx=sx[fb_pix],
         fb_sy=sy[fb_pix], fb_gain=gain[fb_pix],
-        n_fallback=tlut.n_fallback,
-        n_cams=int(cam.max()) + 1 if cam.numel() else 0,
+        n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
         pano_hw=(Hp, Wp), frame_hw=(fh, fw))
 
 
@@ -172,7 +183,54 @@ def _overlay_fallback(out: torch.Tensor, planar_b: torch.Tensor,
 
     vals = torch.stack([chan(c) for c in range(3)], dim=1) * ml.fb_gain
     vals = torch.where(ml.fb_cam >= 0, vals, torch.zeros((), device=vals.device))
-    out[:, :, ml.fb_pix] = torch.round(vals).clamp(0, 255).to(torch.uint8)
+    out[:, :, ml.fb_pix] = to_u8(vals)
+
+
+def int_tap_values(planar_b_i8: torch.Tensor, f: dict, sel: torch.Tensor):
+    """The kernels' integer path as plain PyTorch. `f` holds per-pixel
+    fields (`unpack_taps`), `sel` the pixels to gather. Returns a function
+    c -> [B, len(sel)] float32: channel c's
+    float(sum of integer weights x int8 taps) * f32(1 / 16129)."""
+    B, N, _, H, W = planar_b_i8.shape
+    cam, x0, y0, a, ay = (f[k][sel].long() for k in
+                          ("cam", "x0", "y0", "a", "ay"))
+    # a tap on the frame's last row/column has weight 0 on its second tap
+    x1 = (x0 + 1).clamp(max=W - 1)
+    y1 = (y0 + 1).clamp(max=H - 1)
+    w00, w01 = (a * ay).int(), ((WEIGHT - a) * ay).int()
+    w10, w11 = (a * (WEIGHT - ay)).int(), ((WEIGHT - a) * (WEIGHT - ay)).int()
+    inv = torch.tensor(INV, dtype=torch.float32, device=planar_b_i8.device)
+    flat = planar_b_i8.reshape(B, -1)
+
+    def channel(c):
+        base = (cam * 3 + c) * (H * W)
+
+        def tap(yi, xi):
+            return flat[:, base + yi * W + xi].to(torch.int32)
+
+        s = (w00 * tap(y0, x0) + w01 * tap(y0, x1) + w10 * tap(y1, x0)
+             + w11 * tap(y1, x1))
+        return s.to(torch.float32) * inv
+
+    return channel
+
+
+def to_u8(v: torch.Tensor) -> torch.Tensor:
+    """Round half to even, clamp, uint8: every kernel's last step."""
+    return torch.round(v).clamp(0, 255).to(torch.uint8)
+
+
+def seam_select_plain(planar_b_i8, tap_xy, tap_cw, gc) -> torch.Tensor:
+    """(v + 128) * gc on every pixel with tap_cw >= 0, 0 elsewhere:
+    [B, 3, npix] uint8."""
+    out = torch.zeros((planar_b_i8.shape[0], 3, tap_cw.numel()),
+                      dtype=torch.uint8, device=planar_b_i8.device)
+    sel = torch.nonzero(tap_cw >= 0).reshape(-1)
+    value = int_tap_values(planar_b_i8, unpack_taps(tap_xy, tap_cw), sel)
+    g = gc[sel]
+    for c in range(3):
+        out[:, c, sel] = to_u8((value(c) + 128.0) * g)
+    return out
 
 
 def composite_mat2_plain(planar_b_i8: torch.Tensor,
@@ -181,38 +239,15 @@ def composite_mat2_plain(planar_b_i8: torch.Tensor,
     fallback tiles' float gather): [B, N, 3, H, W] int8 (value-128) ->
     [B, 3, Hp, Wp] uint8. The CPU path, and the version the kernel is held
     against on the card."""
-    _check(planar_b_i8, ml)
-    B, N, _, H, W = planar_b_i8.shape
-    Hp, Wp = ml.pano_hw
-    dev = planar_b_i8.device
-    out = torch.zeros((B, 3, Hp * Wp), dtype=torch.uint8, device=dev)
-    f = ml.fields()
-    sel = torch.nonzero(f["cam"] >= 0).reshape(-1)
-    cam, x0, y0, a, ay = (f[k][sel].long() for k in
-                          ("cam", "x0", "y0", "a", "ay"))
-    x1 = (x0 + 1).clamp(max=W - 1)
-    y1 = (y0 + 1).clamp(max=H - 1)
-    w00, w01 = (a * ay).int(), ((WEIGHT - a) * ay).int()
-    w10, w11 = (a * (WEIGHT - ay)).int(), ((WEIGHT - a) * (WEIGHT - ay)).int()
-    gc = ml.gc[sel]
-    inv = torch.tensor(INV, dtype=torch.float32, device=dev)
-    flat = planar_b_i8.reshape(B, -1)
-    for c in range(3):
-        base = (cam * 3 + c) * (H * W)
-
-        def tap(yi, xi):
-            return flat[:, base + yi * W + xi].to(torch.int32)
-
-        s = (w00 * tap(y0, x0) + w01 * tap(y0, x1) + w10 * tap(y1, x0)
-             + w11 * tap(y1, x1))
-        v = s.to(torch.float32) * inv
-        out[:, c, sel] = torch.round((v + 128.0) * gc).clamp(0, 255) \
-            .to(torch.uint8)
+    check_frames(planar_b_i8, ml)
+    out = seam_select_plain(planar_b_i8, ml.tap_xy, ml.tap_cw, ml.gc)
     _overlay_fallback(out, planar_b_i8, ml)
-    return out.reshape(B, 3, Hp, Wp)
+    return out.reshape(planar_b_i8.shape[0], 3, *ml.pano_hw)
 
 
-def _check(planar_b: torch.Tensor, ml: MatLUT2) -> None:
+def check_frames(planar_b: torch.Tensor, ml) -> None:
+    """Raise unless the frames are what a kernel of `ml` takes (`ml` has
+    frame_hw, n_cams and device)."""
     if planar_b.dtype != torch.int8 or planar_b.dim() != 5 \
             or planar_b.shape[2] != 3:
         raise ValueError("expected [B, N, 3, H, W] int8 frames, got "
@@ -235,7 +270,7 @@ def _composite(planar_b: torch.Tensor, ml: MatLUT2,
         return composite_mat2_plain(planar_b, ml)
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
-    _check(planar_b, ml)
+    check_frames(planar_b, ml)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp * Wp), dtype=torch.uint8,

@@ -34,24 +34,33 @@ class CompositeLUT:
                               for f in dataclasses.fields(self)))
 
 
-def build_lut(reg: Registration, crop=None) -> CompositeLUT:
-    """Flatten a registration into a CompositeLUT on the registration's
-    device. crop=(y0, y1, x0, x1) applies the RT crop margins."""
+def roi_placer(reg: Registration):
+    """place(i, arr, fill): camera i's ROI array on a canvas of `fill`,
+    oversized by one ROI so a ROI placed at any corner fits; callers crop to
+    the canvas at the end."""
     CW, CH = reg.canvas_wh
     Hr, Wr = reg.roi_hw
-    n = reg.n_cameras
-    dev = reg.device
-    # oversized canvas so a ROI placed at any corner fits; cropped at the end
     HP, WP = CH + Hr, CW + Wr
     corners = reg.corners.cpu().tolist()
 
     def place(i, arr, fill):
-        canvas = torch.full((HP, WP), fill, dtype=arr.dtype, device=dev)
+        canvas = torch.full((HP, WP), fill, dtype=arr.dtype, device=arr.device)
         # the start clamp of jax.lax.dynamic_update_slice
         y = min(max(int(corners[i][1]), 0), HP - Hr)
         x = min(max(int(corners[i][0]), 0), WP - Wr)
         canvas[y:y + Hr, x:x + Wr] = arr
         return canvas
+
+    return place, (HP, WP)
+
+
+def build_lut(reg: Registration, crop=None) -> CompositeLUT:
+    """Flatten a registration into a CompositeLUT on the registration's
+    device. crop=(y0, y1, x0, x1) applies the RT crop margins."""
+    CW, CH = reg.canvas_wh
+    n = reg.n_cameras
+    dev = reg.device
+    place, (HP, WP) = roi_placer(reg)
 
     own = [place(i, reg.seam_masks[i] & reg.valid[i], False) for i in range(n)]
     # first owner wins (argmax over the camera axis: 0 where nobody owns)

@@ -1,18 +1,22 @@
 """Video runtime: the serving subset of the cached-registration compositor.
 
 Port of `stitchingvideo_tpu/video/runtime.py` for the seam-select hot loop
-(`compose_mode='lut'`): load or install a registration, then composite one
-frame set or a micro-batch through the mat2 kernel. The LUT swap is an
-atomic reference assignment under a lock, and the output canvas is frozen
-to the first registration's shape.
+(`compose_mode='lut'`, kernels `mat2`, `mat`, `tiled` and the plain
+`gather`) and the feather hot loop (`compose_mode='feather'`): load or
+install a registration, then composite one frame set or a micro-batch
+through the mode's kernel. A state swap is an atomic reference assignment
+under a lock, and the output canvas is frozen to the first registration's
+shape.
 
-Registration itself (`register`, `run` with its re-registration thread), the
-feather and multiband modes, the `mat`/`tiled` kernels and canvas sharding
-are later slices of the port (ROADMAP.md, queue 1) and raise
-`NotImplementedError` here.
+Still to port, each raising `NotImplementedError` with its ROADMAP.md item:
+the multiband mode (item 17), registration itself (`register`, items 9-15,
+and `run` with its re-registration thread, item 15), the full blend that
+feather falls back to without a kernel state (item 19) and canvas sharding
+(item 22).
 """
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -23,12 +27,23 @@ import torch
 from ..config import StitchConfig
 from ..device import resolve_device
 from ..models.registration import Registration
-from ..ops.composite_mat import frames_to_planar_i8, planar_to_hwc
-from ..ops.composite_mat2 import (build_mat2_lut, composite_mat2_planar,
+from ..ops.composite import build_tiled_lut, composite_tiled
+from ..ops.composite_feather import (BlendLUT, build_blend_lut,
+                                     build_feather_mat,
+                                     composite_feather_planar,
+                                     composite_feather_planar_batched)
+from ..ops.composite_mat import (_materialize, composite_mat,
+                                 composite_mat_planar_batched,
+                                 frames_to_planar_i8, planar_to_hwc)
+from ..ops.composite_mat2 import (_materialize2, composite_mat2_planar,
                                   composite_mat2_planar_batched)
 from .lut import CompositeLUT, build_lut, composite_frame_u8
 
+log = logging.getLogger(__name__)
+
 _ROADMAP = "ROADMAP.md, queue 1"
+_BLEND_FILLS = dict(cam_a=-1, sx_a=0.0, sy_a=0.0, gw_a=0.0,
+                    cam_b=-1, sx_b=0.0, sy_b=0.0, gw_b=0.0)
 
 
 def _fit2d(a: torch.Tensor, fill, shape) -> torch.Tensor:
@@ -70,7 +85,7 @@ class FrameStats:
 
 
 class VideoStitcher:
-    """Seam-select hot loop on one device.
+    """Seam-select and feather hot loops on one device.
 
     device: 'cuda' unless given; with no CUDA present the default raises
     (there is no silent CPU fallback). `device="cpu"` runs the kernels'
@@ -79,23 +94,27 @@ class VideoStitcher:
     def __init__(self, config: Optional[StitchConfig] = None, device=None):
         cfg = config or StitchConfig()
         v = cfg.video
-        if v.compose_mode != "lut":
+        if v.compose_mode == "multiband":
             raise NotImplementedError(
-                f"compose_mode={v.compose_mode!r} is slice 3 of the port "
-                f"({_ROADMAP}, items 16-17); only 'lut' is ported")
-        if v.kernel not in ("auto", "mat2", "gather"):
-            raise NotImplementedError(
-                f"kernel={v.kernel!r} is not ported yet ({_ROADMAP} item 6 "
-                "and queue 2, K5/K6); use 'auto', 'mat2' or 'gather'")
+                "compose_mode='multiband' is the next slice of the port "
+                f"({_ROADMAP}, item 17); 'lut' and 'feather' are ported")
+        if v.compose_mode not in ("lut", "feather"):
+            raise ValueError(f"unknown compose_mode {v.compose_mode!r}")
+        if v.kernel not in ("auto", "mat2", "mat", "tiled", "gather"):
+            raise ValueError(f"unknown kernel {v.kernel!r}")
         if cfg.parallel.canvas_shards > 1:
             raise NotImplementedError(
-                "canvas_shards > 1 is slice 4 of the port "
+                "canvas_shards > 1 is not ported yet "
                 f"({_ROADMAP}, item 22)")
         self.device = resolve_device(device, "VideoStitcher")
         self.cfg = cfg
         self._lock = threading.Lock()
         self._lut: Optional[CompositeLUT] = None
-        self._tlut = None                  # ("mat2", MatLUT2) or None
+        # seam-select kernel state: (kind, state) with kind 'mat2' | 'mat' |
+        # 'tiled', or None for the plain gather
+        self._tlut = None
+        self._ftlut = None                 # ("fmat", FeatherMatLUT) or None
+        self._ftlut_reg = None             # the Registration it was built from
         self._reg: Optional[Registration] = None
         self._out_shape: Optional[tuple] = None
         self._frame_hw: Optional[tuple] = None
@@ -105,35 +124,75 @@ class VideoStitcher:
     # -- slow path -----------------------------------------------------
     def register(self, frames, seed: int = 0) -> None:
         raise NotImplementedError(
-            "registration is slice 2 of the port "
+            "registration is not ported yet "
             f"({_ROADMAP}, items 9-15): load a registration the JAX package "
             "saved (load_registration) or install a LUT (install_lut)")
 
     def run(self, *args, **kwargs):
         raise NotImplementedError(
-            "the streaming loop with re-registration is slice 2 of the port "
+            "the streaming loop with re-registration is not ported yet "
             f"({_ROADMAP}, item 15)")
 
     def install_lut(self, lut: CompositeLUT, frame_hw,
                     reg: Optional[Registration] = None) -> None:
         """Atomically swap in a composite LUT (the double-buffered UpdateMat
         step, 64-bit driver :696-722); the entry point for loaded state.
-        With kernel 'auto' or 'mat2' it builds the mat2 state or raises,
-        and then the previous state stays live."""
+        In 'lut' mode it builds the configured kernel's state; in 'feather'
+        mode, given the registration, the feather state. A build that fails
+        raises, and then the previous state stays live."""
         lut = lut.to(self.device)
         frame_hw = tuple(int(x) for x in frame_hw)
+        feather = self.cfg.video.compose_mode == "feather"
         with self._lock:
             out_shape = self._out_shape or lut.shape
             if lut.shape != out_shape:
                 lut = self._fit_lut(lut, out_shape)
-            tlut = (None if self.cfg.video.kernel == "gather"
-                    else ("mat2", build_mat2_lut(lut, frame_hw)))
+            # the feather hot loop never runs the seam-select kernel
+            tlut = None if feather else self._build_tiled(lut, frame_hw)
+            ftlut = (self._build_feather(reg, frame_hw, out_shape)
+                     if feather and reg is not None else None)
             self._out_shape = out_shape
             if reg is not None:
                 self._reg = reg
             self._frame_hw = frame_hw
             self._lut, self._tlut = lut, tlut
+            if ftlut is not None:
+                self._ftlut, self._ftlut_reg = ftlut, reg
             self.registrations += 1
+
+    def _build_tiled(self, lut: CompositeLUT, frame_hw):
+        """The seam-select kernel state of cfg.video.kernel: 'auto' and
+        'mat2' build mat2, 'mat' and 'tiled' their own. Neither of the last
+        two has a fallback path: on a LUT with fallback tiles the result is
+        None (the plain gather), as in the reference, with a warning."""
+        kernel = self.cfg.video.kernel
+        if kernel == "gather":
+            return None
+        tlut = build_tiled_lut(lut, frame_hw)
+        if kernel in ("auto", "mat2"):
+            return ("mat2", _materialize2(tlut))
+        if tlut.n_fallback != 0:
+            log.warning("kernel=%r has no fallback path and the LUT has %d "
+                        "fallback tiles: composing through the plain gather",
+                        kernel, tlut.n_fallback)
+            return None
+        return ("mat", _materialize(tlut)) if kernel == "mat" \
+            else ("tiled", tlut)
+
+    def _build_feather(self, reg: Registration, frame_hw, out_shape):
+        """The feather kernel state from a registration."""
+        return ("fmat", build_feather_mat(self._blend_lut(reg, out_shape),
+                                          frame_hw))
+
+    def _blend_lut(self, reg: Registration, out_shape) -> BlendLUT:
+        """A registration's blend LUT, cropped by the RT margins and fitted
+        to the frozen output shape."""
+        blut = build_blend_lut(reg, self.cfg.compose.feather_sharpness) \
+            .to(self.device)
+        blut = blut.crop(*self._crop_slices(blut.shape, reg.extent_wh))
+        if blut.shape != tuple(out_shape):
+            blut = self._fit_blend(blut, out_shape)
+        return blut
 
     def load_registration(self, path: str) -> None:
         """Load a registration `.npz` that the JAX package's
@@ -162,6 +221,11 @@ class VideoStitcher:
         if y1 <= y0 or x1 <= x0:
             return 0, H, 0, W
         return y0, y1, x0, x1
+
+    @staticmethod
+    def _fit_blend(blut: BlendLUT, shape) -> BlendLUT:
+        """Pad/crop a blend LUT to the frozen output shape."""
+        return blut.map(lambda k, a: _fit2d(a, _BLEND_FILLS[k], shape))
 
     @staticmethod
     def _fit_lut(lut: CompositeLUT, shape) -> CompositeLUT:
@@ -207,18 +271,39 @@ class VideoStitcher:
     # -- hot path ------------------------------------------------------
     def composite(self, frames: List[np.ndarray]) -> np.ndarray:
         """One frame set through the cached registration: a list of HWC
-        uint8 frames -> HWC uint8 panorama."""
+        uint8 frames -> HWC uint8 panorama, through the kernel of
+        cfg.video.compose_mode ('lut': seam-select; 'feather': the top-2
+        feather blend)."""
         # one snapshot: frame selection and the kernel state come from the
         # same registration even if install_lut runs concurrently
         with self._lock:
             reg = self._reg
             lut, tlut = self._lut, self._tlut
-        batch = torch.from_numpy(np.stack(self._select_frames(frames, reg)))
-        out = self._planar_with(batch.to(self.device), lut, tlut)
+            ftlut, ft_reg = self._ftlut, self._ftlut_reg
+        if self.cfg.video.compose_mode == "feather":
+            self._need_feather(ftlut)
+            batch = self._to_device(self._select_frames(frames, ft_reg or reg))
+            out = self._feather_planar(batch, ftlut)
+        else:
+            batch = self._to_device(self._select_frames(frames, reg))
+            out = self._planar_with(batch, lut, tlut)
         return self._fit_frame(planar_to_hwc(out).cpu().numpy())
 
+    def _to_device(self, frames: List[np.ndarray]) -> torch.Tensor:
+        return torch.from_numpy(np.stack(frames)).to(self.device)
+
+    @staticmethod
+    def _need_feather(ftlut) -> None:
+        if ftlut is None:
+            raise RuntimeError(
+                "feather state not built: install a registration "
+                "(load_registration, or install_lut with reg=) with "
+                "compose_mode='feather'; the full blend without a kernel "
+                f"state is not ported ({_ROADMAP}, item 19)")
+
     def composite_planar(self, batch: torch.Tensor) -> torch.Tensor:
-        """[N, H, W, 3] uint8 on the device -> [3, Hp, Wp] uint8 planar."""
+        """[N, H, W, 3] uint8 on the device -> [3, Hp, Wp] uint8 planar,
+        through the seam-select state."""
         with self._lock:
             lut, tlut = self._lut, self._tlut
         return self._planar_with(batch, lut, tlut)
@@ -227,19 +312,46 @@ class VideoStitcher:
         """Hot path on caller-snapshotted LUT state."""
         if lut is None:
             raise RuntimeError("not registered yet")
-        if tlut is not None:
-            return composite_mat2_planar(frames_to_planar_i8(batch), tlut[1])
+        kind, state = tlut or ("gather", lut)
+        if kind == "mat2":
+            return composite_mat2_planar(frames_to_planar_i8(batch), state)
+        if kind == "mat":
+            return composite_mat(batch, state)
+        if kind == "tiled":
+            return composite_tiled(batch, state).permute(2, 0, 1)
         return composite_frame_u8(batch, lut).permute(2, 0, 1)
+
+    def composite_feather_planar(self, batch: torch.Tensor) -> torch.Tensor:
+        """Feather-blended hot path: [N, H, W, 3] uint8 on the device ->
+        [3, Hp, Wp] uint8 planar."""
+        with self._lock:
+            ftlut = self._ftlut
+        self._need_feather(ftlut)
+        return self._feather_planar(batch, ftlut)
+
+    @staticmethod
+    def _feather_planar(batch: torch.Tensor, ftlut) -> torch.Tensor:
+        """Feather hot path on a caller-snapshotted state."""
+        return composite_feather_planar(frames_to_planar_i8(batch), ftlut[1])
 
     def composite_microbatch(self, planar_batch: torch.Tensor) -> torch.Tensor:
         """Throughput serving path: B frame sets in one launch.
 
         planar_batch: [B, N, 3, H, W] int8 (value-128, the ingest-native
-        planar layout) on the device. Returns [B, 3, Hp, Wp] uint8."""
+        planar layout) on the device. Returns [B, 3, Hp, Wp] uint8, per
+        frame set what the single-frame path gives. Served by the feather,
+        mat2 and mat kernels."""
         with self._lock:
-            tlut = self._tlut
-        if tlut is None:
-            raise RuntimeError("micro-batch path requires the mat2 LUT "
-                               "(install a registration with kernel "
-                               "'auto' or 'mat2')")
-        return composite_mat2_planar_batched(planar_batch, tlut[1])
+            tlut, ftlut = self._tlut, self._ftlut
+        if self.cfg.video.compose_mode == "feather":
+            if ftlut is None:
+                raise RuntimeError("feather micro-batch path requires the "
+                                   "feather state (install a registration)")
+            return composite_feather_planar_batched(planar_batch, ftlut[1])
+        if tlut is not None and tlut[0] == "mat2":
+            return composite_mat2_planar_batched(planar_batch, tlut[1])
+        if tlut is not None and tlut[0] == "mat":
+            return composite_mat_planar_batched(planar_batch, tlut[1])
+        raise RuntimeError("micro-batch path requires a materialized LUT "
+                           "(install a registration with kernel 'auto', "
+                           "'mat2' or 'mat')")

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from stitchingvideo_tpu_torch.ops import composite as tiled
+from stitchingvideo_tpu_torch.ops import composite_feather as fe
+from stitchingvideo_tpu_torch.ops import composite_mat as mat
 from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
 from stitchingvideo_tpu_torch.ops.composite_mat import frames_to_planar_i8
+from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
 from stitchingvideo_tpu_torch.video.lut import CompositeLUT, composite_frame_u8
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +121,154 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         m2.composite_mat2_planar(planar.transpose(2, 3).contiguous()
                                  .transpose(2, 3), ml)   # not contiguous
+
+
+# panorama sizes that are no multiple of the 8x128 tile; "rot04" leaves an
+# uncovered region (coordinates outside the frame)
+ODD = dict(ph=61, pw=1000)
+
+
+@pytest.mark.parametrize("kind", ("rot005", "rot04", "edge"))
+def test_composite_mat_kernel_matches_plain(dev, kind):
+    frames, lut = _state(kind, **ODD)
+    lut = lut.to(dev)
+    ml = mat.build_mat_lut(lut, FRAME_HW)
+    assert ml.n_fallback == 0
+    assert bool((ml.tap_cw < 0).any()) == (kind == "rot04")
+    batch = torch.stack([frames, frames.flip(1), frames.roll(7, 2)]).to(dev)
+    planar = frames_to_planar_i8(batch)
+    before = mat.MAT_SINGLE.launches, mat.MAT_BATCHED.launches
+    got1 = mat.composite_mat_planar(planar[0], ml)
+    got3 = mat.composite_mat_planar_batched(planar, ml)
+    torch.cuda.synchronize()
+    assert (mat.MAT_SINGLE.launches, mat.MAT_BATCHED.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got3.shape == (3, 3, 61, 1000)
+    assert torch.equal(got3, mat.composite_mat_plain(planar, ml))
+    assert torch.equal(got1, got3[0])
+    # without fallback tiles mat is mat2
+    ml2 = m2.build_mat2_lut(lut, FRAME_HW)
+    assert torch.equal(got3, m2.composite_mat2_planar_batched(planar, ml2))
+
+
+@pytest.mark.parametrize("kind", ("rot005", "rot04", "edge"))
+def test_composite_tiled_kernel_matches_plain(dev, kind):
+    frames, lut = _state(kind, **ODD)
+    lut = lut.to(dev)
+    tl = tiled.build_tiled_lut(lut, FRAME_HW)
+    assert tl.n_fallback == 0
+    before = tiled.TILED.launches
+    got = tiled.composite_tiled(frames.to(dev), tl)
+    torch.cuda.synchronize()
+    assert tiled.TILED.launches == before + 1
+    assert got.shape == (61, 1000, 3)
+    planar = frames.to(dev).permute(0, 3, 1, 2).contiguous()
+    want = tiled.composite_tiled_plain(planar, tl)
+    assert torch.equal(got, want)
+    tl_cpu = tiled.build_tiled_lut(lut.to("cpu"), FRAME_HW)
+    assert torch.equal(want.cpu(),
+                       tiled.composite_tiled_plain(planar.cpu(), tl_cpu))
+    ref = composite_frame_u8(frames.to(dev), lut)
+    diff = (got.int() - ref.int()).abs().float()
+    assert diff.median() <= 1 and (diff <= 3).float().mean() > 0.999
+    assert bool((got[lut.cam_idx < 0] == 0).all())
+
+
+def test_remap_tiled_on_the_card(dev):
+    frames, lut = _state("rot005", **ODD)
+    own = (lut.cam_idx == 1).to(dev)
+    minus = torch.full((), -1.0, device=dev)
+    got = remap_tiled(frames[1].to(dev), torch.where(own, lut.src_x.to(dev),
+                                                     minus),
+                      torch.where(own, lut.src_y.to(dev), minus))
+    want = remap_tiled(frames[1], torch.where(own.cpu(), lut.src_x, -1.0),
+                       torch.where(own.cpu(), lut.src_y, -1.0))
+    assert got is not None and torch.equal(got.cpu(), want)
+    gen = torch.Generator().manual_seed(1)
+    scrambled = torch.rand((16, 256), generator=gen) * 100
+    assert remap_tiled(frames[1].to(dev), scrambled.to(dev) * 5,
+                       scrambled.to(dev)) is None
+
+
+def _blend_state(triple_cols=(), N=3, Hp=61, Wp=700, seed=0):
+    """tests/test_pallas_feather.py's synthetic blend LUT, in numpy: side-
+    by-side cameras with ramped overlap bands; `triple_cols` name a third
+    camera (fallback tiles); the last columns are uncovered."""
+    fh, fw = FRAME_HW
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 255, (N, fh, fw, 3), np.uint8)
+    xx, yy = np.meshgrid(np.arange(Wp, dtype=np.float32),
+                         np.arange(Hp, dtype=np.float32))
+    seg = Wp // N
+    camA = np.clip((xx / seg).astype(np.int32), 0, N - 1)
+    bpos = (xx - camA * seg) / seg
+    ov = 0.25
+    wA = np.ones((Hp, Wp), np.float32)
+    camB = np.full((Hp, Wp), -1, np.int32)
+    wB = np.zeros((Hp, Wp), np.float32)
+    right = (bpos > 1 - ov) & (camA < N - 1)
+    wA[right] = ((1 - bpos[right]) / ov) * 0.5 + 0.5
+    camB[right] = camA[right] + 1
+    wB[right] = 1 - wA[right]
+    for c in triple_cols:
+        camB[:, c] = (camA[:, c] + 2) % N
+        wB[:, c] = 0.3
+        wA[:, c] = 0.7
+    camA[:, -9:] = -1
+    wA[:, -9:] = 0.0
+    sxA = 8 + (xx - np.maximum(camA, 0) * seg) * (fw - 16) / seg * 0.6
+    syA = 8 + yy * (fh - 16) / Hp * 0.8
+    sxB = np.where(camB >= 0, 10 + (xx % seg) * 0.1, 0.0)
+    gA = 1.0 + 0.1 * np.sin(xx / 31)
+    f32 = np.float32
+    blut = fe.BlendLUT(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        camA, sxA.astype(f32), syA.astype(f32), (wA * gA).astype(f32),
+        camB, sxB.astype(f32), syA.astype(f32), (wB * gA).astype(f32))))
+    return torch.from_numpy(frames), blut
+
+
+@pytest.mark.parametrize("triple_cols", ((), (130, 131, 600)),
+                         ids=("clean", "fallback"))
+def test_composite_feather_kernel_matches_plain(dev, triple_cols):
+    frames, blut = _blend_state(triple_cols)
+    ml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
+    assert (ml.n_fallback > 0) == bool(triple_cols)
+    live = ml.tap_cw >= 0
+    assert bool((live[0] & live[1]).any())           # two-slot pixels
+    assert bool((~live[0] & ~live[1] & (ml.tap_cw[0] == -1)).any())
+    batch = torch.stack([frames, frames.flip(1), frames.roll(7, 2)]).to(dev)
+    planar = frames_to_planar_i8(batch)
+    before = fe.FEATHER_SINGLE.launches, fe.FEATHER_BATCHED.launches
+    got1 = fe.composite_feather_planar(planar[0], ml)
+    got3 = fe.composite_feather_planar_batched(planar, ml)
+    torch.cuda.synchronize()
+    assert (fe.FEATHER_SINGLE.launches, fe.FEATHER_BATCHED.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got3.shape == (3, 3, 61, 700)
+    assert torch.equal(got3, fe.composite_feather_plain(planar, ml))
+    assert torch.equal(got1, got3[0])
+    # the plain version on the card is the plain version on the CPU
+    ml_cpu = fe.build_feather_mat(blut, FRAME_HW)
+    assert torch.equal(got3.cpu(),
+                       fe.composite_feather_plain(planar.cpu(), ml_cpu))
+    oracle = torch.round(fe.composite_blend_gather(frames.to(dev),
+                                                   blut.to(dev)))
+    diff = (got1.permute(1, 2, 0).int() - oracle.clamp(0, 255).int()).abs()
+    assert diff.float().median() == 0 and int(diff.max()) <= 3
+    if triple_cols:
+        assert int(diff[:, list(triple_cols)].max()) <= 1
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    frames, lut = _state("poisoned")
+    lut = lut.to(dev)
+    planar = frames_to_planar_i8(frames.to(dev))
+    with pytest.raises(ValueError, match="fallback"):
+        mat.composite_mat_planar(planar, mat.build_mat_lut(lut, FRAME_HW))
+    with pytest.raises(ValueError, match="fallback"):
+        tiled.composite_tiled(frames.to(dev),
+                              tiled.build_tiled_lut(lut, FRAME_HW))
+    frames, blut = _blend_state()
+    ml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
+    with pytest.raises(ValueError):
+        fe.composite_feather_planar(frames_to_planar_i8(frames), ml)

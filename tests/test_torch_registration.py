@@ -129,7 +129,10 @@ def test_port_imports_no_jax():
             "stitchingvideo_tpu_torch.ops._cuda",
             "stitchingvideo_tpu_torch.ops.composite",
             "stitchingvideo_tpu_torch.ops.composite_mat",
-            "stitchingvideo_tpu_torch.ops.composite_mat2"]
+            "stitchingvideo_tpu_torch.ops.composite_mat2",
+            "stitchingvideo_tpu_torch.ops.composite_feather",
+            "stitchingvideo_tpu_torch.ops.distance",
+            "stitchingvideo_tpu_torch.ops.remap_tiled"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
