@@ -156,11 +156,12 @@ __device__ __forceinline__ float slot_value(const IntTaps& t,
 
 // Registers decide this kernel's speed: it waits on gathers, so it needs
 // many threads in flight. With both slots in one loop nest over (b, c) the
-// compiler hoisted 24 tap addresses and took 127 registers (0.47 ms at B=1,
-// 3.64 ms at B=16 on the H100 at product size). Split by what is live, the
-// one-slot pixels (90% of the rig's) run the seam-select loop, the two-slot
-// pixels a flat loop that is not unrolled: 64 registers, 0.19 / 1.16 ms;
-// capped at 40 registers by the launch bounds, 0.15 / 1.12 ms (PERF.md).
+// compiler hoisted 24 tap addresses and took 127 registers: 0.47 ms at B=1
+// and 3.63 ms at B=16 on the H100 at product size. Split by what is live,
+// the one-slot pixels (90% of the rig's) run the seam-select loop and the
+// two-slot pixels a flat loop that is not unrolled; with the launch bounds
+// holding it to at most 42 registers: 0.15 ms and 1.17 ms (PERF.md,
+// chip_smoke.py).
 __global__ void __launch_bounds__(256, 6)
 composite_feather_kernel(const int8_t* __restrict__ frames,
                          const int32_t* __restrict__ tap_xy,
