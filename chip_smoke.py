@@ -17,7 +17,8 @@ What it does, in phases (any failure exits non-zero):
   5. mat (`kernel='mat'`): `composite` and `composite_microbatch` at B=16 on
      the un-poisoned rig; the output also equals mat2's on the same LUT;
   6. tiled (`kernel='tiled'`): `composite`; and `remap_tiled` of one frame
-     through one camera's map against `composite_tiled` on that LUT;
+     through one camera's map against `composite_tiled` on that LUT, with
+     one `grid_sample` call on the same map as a yardstick;
   7. feather (`compose_mode='feather'`): a product-size registration (5
      cameras on the cylinder with overlapping ROIs, a few patches that bring
      a third camera into a tile) is written as `.npz` into a temporary
@@ -283,16 +284,17 @@ def chunked(fn, batch, step: int = 8):
                       for b in range(0, batch.shape[0], step)])
 
 
-def gather_gate(got_planar, oracle_planar, within: int, what: str):
+def gather_gate(got_planar, oracle_planar, within: int, what: str,
+                oracle: str = "gather oracle"):
     """The reference's tolerance of a seam-select kernel against the exact
     gather: median <= 1 and >= 99.9% within `within`."""
     diff = (got_planar.int() - oracle_planar.int()).abs()
     med = float(diff.float().median())
     share = float((diff <= within).float().mean())
-    print(f"{what} vs gather oracle: median |diff| {med}, within {within}: "
+    print(f"{what} vs {oracle}: median |diff| {med}, within {within}: "
           f"{share:.6f}", flush=True)
     if med > 1 or share < 0.999:
-        fail(f"{what} misses the gather oracle's tolerance")
+        fail(f"{what} misses its tolerance against the {oracle}")
 
 
 def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
@@ -516,7 +518,7 @@ def phase_mat(C):
              lambda: mat.composite_mat_planar_batched(planar16, ml))):
         planar = planar16[:B]
         rows.append(kernel_row(
-            k, "composite_mat.cu", "composite_mat.py:150", launches[k.name],
+            k, "composite_mat2.cu", "composite_mat.py:150", launches[k.name],
             err, event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: mat.composite_mat_plain(planar, ml),
                      reps=2, warmup=1),
@@ -593,7 +595,29 @@ def phase_tiled(C):
         fail("remap_tiled differs from composite_tiled on the one-camera LUT")
     if int(warped[own].int().sum()) == 0 or int(warped[~own].int().sum()):
         fail("remap_tiled: empty inside the map or not 0 outside it")
-    del warped, one, one_tl
+    # a yardstick that the port never calls: grid_sample warps one image
+    # through one map, as remap_tiled does, but with float32 weights on a
+    # float32 image; held to the tiled kernel's tolerance against the gather
+    F = torch.nn.functional
+    image = frames_d[2].permute(2, 0, 1)[None].float()
+    grid = torch.stack([xmap * (2.0 / (FRAME_HW[1] - 1)) - 1.0,
+                        ymap * (2.0 / (FRAME_HW[0] - 1)) - 1.0], dim=-1)[None]
+
+    def sample():
+        return F.grid_sample(image, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib = torch.round(sample()[0]).clamp(0, 255).to(torch.uint8)
+    gather_gate(warped.permute(2, 0, 1)[:, own], lib[:, own], 3,
+                "remap_tiled", oracle="grid_sample")
+    remap_ms = event_ms(torch, lambda: C.remap_tiled(frames_d[2], xmap, ymap),
+                        reps=10, warmup=2)
+    image_u8 = planar_u8[2:3].contiguous()
+    remap_kernel_ms = event_ms(
+        torch, lambda: tiled.composite_tiled_planar(image_u8, one_tl),
+        reps=10, warmup=2)
+    sample_ms = event_ms(torch, sample, reps=10, warmup=2)
+    del warped, one, one_tl, image, image_u8, grid, lib
 
     Hp, Wp = tl.pano_hw
     covered = tl.cidx >= 0
@@ -625,6 +649,12 @@ def phase_tiled(C):
         "b1_latency_device": latency(
             torch, lambda: vs.composite_planar(frames_d), 20),
         "install_lut_s": install_s,
+        # remap_tiled builds its one-camera tile LUT in every call; the
+        # kernel time is its launch on that LUT, the grid_sample time that
+        # one call on prepared float32 inputs
+        "remap_tiled_call_ms": remap_ms,
+        "remap_tiled_kernel_ms": remap_kernel_ms,
+        "remap_grid_sample_ms": sample_ms,
         "needs": {"frame_bytes": frame_bytes, "lut_bytes": lut_bytes,
                   "covered_px": n_cov},
     }
@@ -734,7 +764,7 @@ def phase_feather(C):
             k, "composite_feather.cu", "composite_feather.py:354",
             launches[k.name], err, event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: fe.composite_feather_plain(planar, ml),
-                     reps=1, warmup=1),
+                     reps=2, warmup=1),
             *feather_bound(B),
             # no one PyTorch call computes the dual integer-weight gather
             library_ms=None, batch=B))
@@ -799,8 +829,8 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------
     build_s = _cuda.build_all(_cuda.LIBRARIES)
-    print(f"build: {len(_cuda.LIBRARIES)} kernels in {build_s:.2f} s",
-          flush=True)
+    print(f"build: {len({lib.source for lib in _cuda.LIBRARIES})} sources "
+          f"in {build_s:.2f} s", flush=True)
 
     # -- 3. the rig ----------------------------------------------------
     t0 = time.perf_counter()

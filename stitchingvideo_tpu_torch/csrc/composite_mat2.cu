@@ -4,6 +4,8 @@
 //   K1  _make_kernel_tile_batched (:624), the micro-batched kernel, and
 //   K2  _make_kernel (:388), the single-frame-set kernel.
 // One kernel with the batch B as a parameter serves both (B = 1 for K2).
+// The file also holds K5, the single-class kernel of composite_mat.py, which
+// is the same integer path without the fallback branch (see below).
 //
 // What it computes, per panorama pixel p and frame set b and channel c:
 //   S   = a*ay*v00 + (127-a)*ay*v01 + a*(127-ay)*v10 + (127-a)*(127-ay)*v11
@@ -86,6 +88,40 @@ __device__ __noinline__ void fallback_pixel(
   }
 }
 
+// The integer path of one covered pixel, for every frame set: the 4 taps
+// with their integer weights, the float tail, the store. Shared by the mat2
+// kernel and the single-class kernel below.
+__device__ __forceinline__ void integer_pixel(
+    const int8_t* __restrict__ frames, int cw, int xy, float g,
+    uint8_t* __restrict__ out, long long p, int B, int N, int H, int W,
+    long long npix) {
+  const float kInv = (float)(1.0 / 16129.0);   // f32(1 / 127^2)
+  const int cam = cw >> 16;
+  const int a = (cw >> 8) & 0xff;
+  const int ay = cw & 0xff;
+  const int x0 = xy & 0xffff;
+  const int y0 = xy >> 16;
+  // a tap on the frame's last row/column has weight 0 on its second tap
+  // (the build guarantees it): clamp the index, never read past the frame
+  const int x1 = min(x0 + 1, W - 1);
+  const int y1 = min(y0 + 1, H - 1);
+  const int w00 = a * ay, w01 = (127 - a) * ay;
+  const int w10 = a * (127 - ay), w11 = (127 - a) * (127 - ay);
+  const long long o00 = (long long)y0 * W + x0, o01 = (long long)y0 * W + x1;
+  const long long o10 = (long long)y1 * W + x0, o11 = (long long)y1 * W + x1;
+  const long long plane = (long long)H * W;
+  for (int b = 0; b < B; ++b) {
+    const int8_t* src = frames + ((long long)b * N + cam) * 3 * plane;
+    for (int c = 0; c < 3; ++c, src += plane) {
+      const int s = w00 * src[o00] + w01 * src[o01] + w10 * src[o10] +
+                    w11 * src[o11];
+      const float v = __fmul_rn(__int2float_rn(s), kInv);
+      out[((long long)b * 3 + c) * npix + p] =
+          to_u8(__fmul_rn(__fadd_rn(v, 128.0f), g));
+    }
+  }
+}
+
 __global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
                                       const int32_t* __restrict__ tap_xy,
                                       const int32_t* __restrict__ tap_cw,
@@ -97,7 +133,6 @@ __global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
                                       uint8_t* __restrict__ out,
                                       int B, int N, int H, int W,
                                       long long npix) {
-  const float kInv = (float)(1.0 / 16129.0);   // f32(1 / 127^2)
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
   const int cw = tap_cw[p];
@@ -110,32 +145,36 @@ __global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
                    B, N, H, W, npix);
     return;
   }
-  const int cam = cw >> 16;
-  const int a = (cw >> 8) & 0xff;
-  const int ay = cw & 0xff;
-  const int xy = tap_xy[p];
-  const int x0 = xy & 0xffff;
-  const int y0 = xy >> 16;
-  // a tap on the frame's last row/column has weight 0 on its second tap
-  // (the build guarantees it): clamp the index, never read past the frame
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
-  const int w00 = a * ay, w01 = (127 - a) * ay;
-  const int w10 = a * (127 - ay), w11 = (127 - a) * (127 - ay);
-  const long long o00 = (long long)y0 * W + x0, o01 = (long long)y0 * W + x1;
-  const long long o10 = (long long)y1 * W + x0, o11 = (long long)y1 * W + x1;
-  const long long plane = (long long)H * W;
-  const float g = gc[p];
-  for (int b = 0; b < B; ++b) {
-    const int8_t* src = frames + ((long long)b * N + cam) * 3 * plane;
-    for (int c = 0; c < 3; ++c, src += plane) {
-      const int s = w00 * src[o00] + w01 * src[o01] + w10 * src[o10] +
-                    w11 * src[o11];
-      const float v = __fmul_rn(__int2float_rn(s), kInv);
-      out[((long long)b * 3 + c) * npix + p] =
-          to_u8(__fmul_rn(__fadd_rn(v, 128.0f), g));
-    }
+  integer_pixel(frames, cw, tap_xy[p], gc[p], out, p, B, N, H, W, npix);
+}
+
+// K5, the single-class materialized kernel ("mat",
+// stitchingvideo_tpu/ops/pallas/composite_mat.py: _kernel (:150), behind
+// composite_mat_planar (:248) and kernel='mat'): mat2's integer path on a
+// state built window by window as the reference's _materialize builds it
+// (ops/composite_mat.py). The TPU kernel forms S as a bf16 matmul (exact on
+// int8 values) of an 80x384 source window, sliced to its 256-wide band,
+// against per-tile hat matrices, for both camera slots of the tile, and keeps
+// the pixel's own slot (sel; the other slot's finite value is multiplied by
+// 0). It has no fallback path, as in the reference: the wrapper refuses a LUT
+// with fallback tiles, and every negative tap_cw is an uncovered pixel
+// (gc = 0 in the reference), written 0. B > 1 is the micro-batch, which the
+// reference maps frame set by frame set.
+__global__ void composite_mat_kernel(const int8_t* __restrict__ frames,
+                                     const int32_t* __restrict__ tap_xy,
+                                     const int32_t* __restrict__ tap_cw,
+                                     const float* __restrict__ gc,
+                                     uint8_t* __restrict__ out,
+                                     int B, int N, int H, int W,
+                                     long long npix) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const int cw = tap_cw[p];
+  if (cw < 0) {
+    for (int bc = 0; bc < B * 3; ++bc) out[bc * npix + p] = 0;
+    return;
   }
+  integer_pixel(frames, cw, tap_xy[p], gc[p], out, p, B, N, H, W, npix);
 }
 
 }  // namespace
@@ -155,6 +194,20 @@ extern "C" int composite_mat2_launch(const void* frames, const void* tap_xy,
       (const float*)gc, (const int32_t*)fb_cam, (const float*)fb_sx,
       (const float*)fb_sy, (const float*)fb_gain, (uint8_t*)out, B, N, H, W,
       npix);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int composite_mat_launch(const void* frames, const void* tap_xy,
+                                    const void* tap_cw, const void* gc,
+                                    void* out, int B, int N, int H, int W,
+                                    long long npix, void* stream) {
+  if (npix <= 0 || B <= 0) return 0;
+  const int threads = 256;
+  const long long blocks = (npix + threads - 1) / threads;
+  composite_mat_kernel<<<(unsigned)blocks, threads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int8_t*)frames, (const int32_t*)tap_xy, (const int32_t*)tap_cw,
+      (const float*)gc, (uint8_t*)out, B, N, H, W, npix);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each `csrc/*.cu` holds one kernel (and the device functions it calls) behind
-a plain C launch function
-(`<stem>_launch`, returning the `cudaError_t` of the launch) and an error
-string helper (`<stem>_error_string`). A source is compiled for Hopper
+Each `csrc/<stem>.cu` holds a kernel (and the device functions it calls)
+behind a plain C launch function (`<stem>_launch`, returning the
+`cudaError_t` of the launch) and an error string helper
+(`<stem>_error_string`); a source may hold a second kernel that shares its
+device functions, behind a launch function of its own (`<entry>_launch`). A
+source is compiled for Hopper
 (`sm_90a`) on first use, into `_build/` beside the package, under a name
 that hashes the source and the flags, so an edited source is rebuilt and
 concurrent processes never load a half-written library. Nothing here runs
@@ -37,10 +39,13 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """One `csrc/<stem>.cu`, compiled into its own shared library."""
+    """One launch function (`<entry>_launch`, `entry` being the stem unless
+    given) of `csrc/<stem>.cu`, which is compiled into its own shared
+    library."""
 
-    def __init__(self, stem: str, argtypes: Sequence):
+    def __init__(self, stem: str, argtypes: Sequence, entry: str = ""):
         self.stem = stem
+        self.entry = entry or stem
         self.source = CSRC / f"{stem}.cu"
         self.argtypes = list(argtypes)
         self._fn = None
@@ -70,7 +75,7 @@ class KernelLibrary:
             if self._fn is None:
                 build_all([self])
                 lib = ctypes.CDLL(str(self.path))
-                fn = getattr(lib, f"{self.stem}_launch")
+                fn = getattr(lib, f"{self.entry}_launch")
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 err = getattr(lib, f"{self.stem}_error_string")
@@ -83,16 +88,17 @@ class KernelLibrary:
         """Launch on the given stream; raise if the launch was refused."""
         rc = self._load()(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.stem}: CUDA error {rc}: "
+            raise RuntimeError(f"{self.entry}: CUDA error {rc}: "
                                f"{self._err(rc).decode()}")
 
 
 def build_all(libraries: Sequence[KernelLibrary]) -> float:
-    """Compile every library that is not built yet, one nvcc each, all
+    """Compile every source that is not built yet, one nvcc each, all
     started together. Raises with the compiler's output if one fails.
     Returns the seconds it took."""
     t0 = time.perf_counter()
-    jobs = [j for j in (lib.start_build() for lib in libraries) if j]
+    sources = {lib.source: lib for lib in libraries}.values()
+    jobs = [j for j in (lib.start_build() for lib in sources) if j]
     failed = []
     for proc, tmp, path in jobs:
         out, _ = proc.communicate()
@@ -129,9 +135,10 @@ COMPOSITE_MAT2 = KernelLibrary("composite_mat2", [_P] * 9 +
 # src, dst, B, N, rows (= 3*H), W, stream
 SHIFT_PLANAR_BN = KernelLibrary("shift_planar_bn",
                                 [_P, _P, _I, _I, _I, _I, _P])
+# the single-class kernel, in mat2's source (it shares the integer path):
 # frames, tap_xy, tap_cw, gc, out, B, N, H, W, npix, stream
-COMPOSITE_MAT = KernelLibrary("composite_mat", [_P] * 5 +
-                              [_I, _I, _I, _I, _L, _P])
+COMPOSITE_MAT = KernelLibrary("composite_mat2", [_P] * 5 +
+                              [_I, _I, _I, _I, _L, _P], entry="composite_mat")
 # frames, sx, sy, gain, cidx, out, N, H, W, ntx, T, Hp, Wp, stream
 COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])
 # frames, tap_xy, tap_cw, gw (each [2, npix]), fb_cam, fb_sx, fb_sy, fb_gw

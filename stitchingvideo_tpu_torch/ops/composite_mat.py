@@ -13,7 +13,8 @@ with the pixel's own slot selected (the other slot's finite value is
 multiplied by 0). The port keeps the reference's build, window by window
 (`_materialize`'s band-local coordinates, its clips, its weights), and stores
 the two non-zeros an axis of each hat matrix per pixel, in global frame
-coordinates: 12 bytes a pixel. Its kernel (`csrc/composite_mat.cu`) gathers
+coordinates: 12 bytes a pixel. Its kernel (`composite_mat_kernel`, in
+`csrc/composite_mat2.cu` beside mat2's, whose integer path it shares) gathers
 the four taps.
 
 Like the reference's, this kernel has no fallback path: a tile whose pixels

@@ -16,7 +16,6 @@ feather falls back to without a kernel state (item 19) and canvas sharding
 """
 from __future__ import annotations
 
-import logging
 import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -38,8 +37,6 @@ from ..ops.composite_mat import (_materialize, composite_mat,
 from ..ops.composite_mat2 import (_materialize2, composite_mat2_planar,
                                   composite_mat2_planar_batched)
 from .lut import CompositeLUT, build_lut, composite_frame_u8
-
-log = logging.getLogger(__name__)
 
 _ROADMAP = "ROADMAP.md, queue 1"
 _BLEND_FILLS = dict(cam_a=-1, sx_a=0.0, sy_a=0.0, gw_a=0.0,
@@ -139,7 +136,8 @@ class VideoStitcher:
         step, 64-bit driver :696-722); the entry point for loaded state.
         In 'lut' mode it builds the configured kernel's state; in 'feather'
         mode, given the registration, the feather state. A build that fails
-        raises, and then the previous state stays live."""
+        raises, and so does a LUT with fallback tiles under kernel 'mat' or
+        'tiled' (`ValueError`); the previous state then stays live."""
         lut = lut.to(self.device)
         frame_hw = tuple(int(x) for x in frame_hw)
         feather = self.cfg.video.compose_mode == "feather"
@@ -162,9 +160,10 @@ class VideoStitcher:
 
     def _build_tiled(self, lut: CompositeLUT, frame_hw):
         """The seam-select kernel state of cfg.video.kernel: 'auto' and
-        'mat2' build mat2, 'mat' and 'tiled' their own. Neither of the last
-        two has a fallback path: on a LUT with fallback tiles the result is
-        None (the plain gather), as in the reference, with a warning."""
+        'mat2' build mat2, 'mat' and 'tiled' their own, None for 'gather'.
+        Neither of the last two kernels has a fallback path: a LUT with
+        fallback tiles raises `ValueError` (the reference quietly composes
+        through its gather instead)."""
         kernel = self.cfg.video.kernel
         if kernel == "gather":
             return None
@@ -172,10 +171,12 @@ class VideoStitcher:
         if kernel in ("auto", "mat2"):
             return ("mat2", _materialize2(tlut))
         if tlut.n_fallback != 0:
-            log.warning("kernel=%r has no fallback path and the LUT has %d "
-                        "fallback tiles: composing through the plain gather",
-                        kernel, tlut.n_fallback)
-            return None
+            raise ValueError(
+                f"kernel={kernel!r} has no fallback path and the LUT has "
+                f"{tlut.n_fallback} fallback tiles (tiles that touch more "
+                "than two cameras or overflow their source window): use "
+                "kernel='mat2', which composes them in its kernel, or "
+                "kernel='gather'")
         return ("mat", _materialize(tlut)) if kernel == "mat" \
             else ("tiled", tlut)
 

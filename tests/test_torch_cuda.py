@@ -7,10 +7,13 @@ run without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from stitchingvideo_tpu_torch import StitchConfig, VideoStitcher
 from stitchingvideo_tpu_torch.ops import composite as tiled
 from stitchingvideo_tpu_torch.ops import composite_feather as fe
 from stitchingvideo_tpu_torch.ops import composite_mat as mat
@@ -268,6 +271,15 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="fallback"):
         tiled.composite_tiled(frames.to(dev),
                               tiled.build_tiled_lut(lut, FRAME_HW))
+    # the runtime refuses such a LUT at install: nothing on the card gives
+    # way to a plain version
+    for kernel in ("mat", "tiled"):
+        cfg = StitchConfig()
+        vs = VideoStitcher(cfg.replace(
+            video=dataclasses.replace(cfg.video, kernel=kernel)))
+        with pytest.raises(ValueError, match="fallback tiles"):
+            vs.install_lut(lut, FRAME_HW)
+        assert vs._lut is None and vs.registrations == 0
     frames, blut = _blend_state()
     ml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
     with pytest.raises(ValueError):
