@@ -26,11 +26,27 @@ What it does, in phases (any failure exits non-zero):
      `composite_feather_planar`, `composite_microbatch` at B=16; the output
      is held to the exact dual gather within the reference's gates
      (median 0, max <= 3, fallback tiles <= 1).
+  8. multiband (`compose_mode='multiband'`): the same rig with a seam
+     partition (each canvas column owned by the nearest camera centre) and a
+     patch of strong warp curvature, whose window tiles overflow their
+     source window and take the fallback branch of the warp kernel; 7 bands
+     on a 1664x7296 canvas, 5 windows of 1664x2048. `composite` (B=1, host
+     to host), `multiband_video_frame` on device tensors,
+     `multiband_video_frames_batched` at B=8; the warp kernel against its
+     plain version (B=1, B=8, batched == single), the blended panorama with
+     the kernel against the same chain fed by the plain warp, batched ==
+     single for every frame set, and on a reduced registration the card's
+     panorama against the same code on the CPU; one B=8 call split into
+     warp / pyramids / canvas / level 0 by CUDA events;
+  9. the window-copy probe (`window_probe`): 512 windows of [3, 32, 256]
+     int8 staged into shared memory with asynchronous copies at origins
+     aligned to 128, 32, 16, 8 and 4 columns, bit-exact against slices of
+     the frame, each timed beside its byte bound.
   In every phase the launch counts are set to 0 before the main path and
   read after it, each kernel's output is held bit-exact against its plain
   PyTorch version on the card (TF32 off), batched output against single
   output, and the seam-select outputs against the exact gather oracle.
-  8. times: each kernel's time beside its bound, its plain version's and,
+  10. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
@@ -188,6 +204,36 @@ def feather_registration(seed: int, frame_hw=FRAME_HW, step: int = 1400,
     }
 
 
+def multiband_registration(seed: int, frame_hw=FRAME_HW, step: int = 1400,
+                           width: int = 1588, canvas_h: int = 1600,
+                           f_src: float = 1100.0) -> dict:
+    """`feather_registration`'s rig with a seam partition: each canvas column
+    is owned by the camera whose centre is nearest, so the overlaps are cut
+    in the middle and every covered pixel has one owner. In the middle of
+    camera 2's share a patch of 16 rows maps three source columns to each
+    canvas column: its window tiles overflow the 256-column source window
+    (fallback tiles of the warp stage)."""
+    d = feather_registration(seed, frame_hw, step, width, canvas_h, f_src)
+    fh, fw = frame_hw
+    Hr, Wr = (int(v) for v in d["roi_hw"])
+    xr = np.arange(Wr, dtype=np.float32)
+    centres = np.arange(N_CAMS, dtype=np.float32) * step + width / 2
+    seams = []
+    for i in range(N_CAMS):
+        owner = np.abs((i * step + xr)[:, None] - centres[None]).argmin(1)
+        seams.append(d["valid"][i] & (owner == i)[None, :])
+    d["seam_masks"] = np.stack(seams)
+    pw = min(300, step // 2)
+    r0, c0 = Hr // 2 // 8 * 8, width // 2 - pw // 2
+    rows, cols = slice(r0, r0 + 16), slice(c0, c0 + pw)
+    d["xmaps"][2][rows, cols] = 0.15 * fw + 3.0 * (xr[cols] - c0)[None, :]
+    yr = np.arange(16, dtype=np.float32)
+    d["ymaps"][2][rows, cols] = fh / 2 + 0.5 * yr[:, None]
+    d["valid"][2][rows, cols] = True
+    d["seam_masks"][2][rows, cols] = True
+    return d
+
+
 def sector_bytes(torch, taps, frame_hw) -> int:
     """Bytes of one frame set in the 32-byte sectors that the given taps
     read: the distinct (cam, row, column // 32) over every (cam, x0, y0, x1,
@@ -297,14 +343,20 @@ def gather_gate(got_planar, oracle_planar, within: int, what: str,
         fail(f"{what} misses its tolerance against the {oracle}")
 
 
+def launched(counts: dict) -> dict:
+    """The kernels of `counts` that were launched, for printing."""
+    return {k: n for k, n in counts.items() if n}
+
+
 def kernel_row(kernel, source, replaces, launches, err, ms, plain_ms,
-               bound_ms, bound_by, library_ms, **extra) -> dict:
+               bound_ms, bound_by, library_ms, replaces_in=PALLAS,
+               **extra) -> dict:
     if launches < 1:
         fail(f"the main path never launched {kernel.name}")
     if err:
         fail(f"{kernel.name} != its plain version, max |diff| {err}")
     return {"name": kernel.name, "route": "cuda", "source": CSRC + source,
-            "replaces": PALLAS + replaces, "launches": launches,
+            "replaces": replaces_in + replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, **extra}
@@ -343,7 +395,7 @@ def phase_mat2(C):
     out32 = vs.composite_microbatch(planar32)
     torch.cuda.synchronize()
     launches = C.read_counts()
-    print(f"mat2 main path launches: {launches}", flush=True)
+    print(f"mat2 main path launches: {launched(launches)}", flush=True)
 
     planar1 = C.frames_to_planar_i8(frames_d)
     plain1 = m2.composite_mat2_plain(planar1[None], ml)[0]
@@ -478,7 +530,7 @@ def phase_mat(C):
     out16 = vs.composite_microbatch(planar16)
     torch.cuda.synchronize()
     launches = C.read_counts()
-    print(f"mat main path launches: {launches}", flush=True)
+    print(f"mat main path launches: {launched(launches)}", flush=True)
 
     planar1 = C.frames_to_planar_i8(frames_d)
     got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
@@ -558,7 +610,7 @@ def phase_tiled(C):
     pano1 = vs.composite(frames)
     torch.cuda.synchronize()
     launches = C.read_counts()
-    print(f"tiled main path launches: {launches}", flush=True)
+    print(f"tiled main path launches: {launched(launches)}", flush=True)
 
     planar_u8 = frames_d.permute(0, 3, 1, 2).contiguous()
     got1 = torch.from_numpy(pano1).to(dev)
@@ -663,6 +715,20 @@ def phase_tiled(C):
     return rows, metrics
 
 
+def save_and_load(vs, state: dict) -> float:
+    """Write `state` as the registration `.npz` and load it: seconds."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "registration.npz")
+        with open(path, "wb") as f:
+            np.savez(f, **state)
+        t0 = time.perf_counter()
+        vs.load_registration(path)
+        if vs.device.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
 # -- feather (compose_mode='feather') ----------------------------------------
 
 def phase_feather(C):
@@ -672,15 +738,8 @@ def phase_feather(C):
     state = feather_registration(C.seed)
     rig_s = time.perf_counter() - t0
     vs = C.VideoStitcher(video_cfg(C, compose_mode="feather"))
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "registration.npz")
-        with open(path, "wb") as f:
-            np.savez(f, **state)
-        del state
-        t0 = time.perf_counter()
-        vs.load_registration(path)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+    load_s = save_and_load(vs, state)
+    del state
     if vs._ftlut is None or vs._ftlut[0] != "fmat" or vs._tlut is not None:
         fail("compose_mode='feather' did not build the feather state alone")
     ml = vs._ftlut[1]
@@ -708,7 +767,7 @@ def phase_feather(C):
     out16 = vs.composite_microbatch(planar16)
     torch.cuda.synchronize()
     launches = C.read_counts()
-    print(f"feather main path launches: {launches}", flush=True)
+    print(f"feather main path launches: {launched(launches)}", flush=True)
 
     planar1 = C.frames_to_planar_i8(frames_d)
     got1 = torch.from_numpy(pano1).to(dev).permute(2, 0, 1)
@@ -786,6 +845,271 @@ def phase_feather(C):
     return rows, metrics
 
 
+# -- multiband (compose_mode='multiband') ------------------------------------
+
+def phase_multiband(C):
+    torch, m2, mb, dev = C.torch, C.m2, C.mb, C.dev
+    planar8, frames, frames_d = C.planar32[:8], C.frames, C.frames_d
+    cfg = video_cfg(C, compose_mode="multiband")
+    vs = C.VideoStitcher(cfg)
+    load_s = save_and_load(vs, multiband_registration(C.seed))
+    if vs._mbtlut is None or vs._tlut is not None:
+        fail("compose_mode='multiband' did not build the multiband state "
+             "alone")
+    t0 = time.perf_counter()
+    vs.build_multiband_state(FRAME_HW)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    st, crop_yx = vs._mbtlut
+    ml = st.warp_lut
+    Nv = len(st.piece_cam)
+    win = st.buf_hw[0] * st.buf_hw[1]
+    npix = Nv * win
+    uncovered = float((ml.tap_cw == m2.UNCOVERED).float().mean())
+    print(f"multiband: load_registration {load_s:.3f} s; state rebuild "
+          f"{build_s:.3f} s; {st.bands} bands, canvas {st.canvas_hw}, {Nv} "
+          f"windows of {st.buf_hw} at x = {st.piece_ax}, out {st.out_hw}; "
+          f"{ml.n_fallback} fallback tiles ({ml.fb_pix.numel()} px); "
+          f"uncovered share of the window stack {uncovered:.4f}", flush=True)
+    if st.out_hw != PANO_HW or st.bands != 7 or Nv != N_CAMS:
+        fail(f"multiband state is {st.bands} bands, {Nv} windows, out "
+             f"{st.out_hw}: not the product size")
+    if ml.n_fallback == 0:
+        fail("the curvature patch did not become fallback tiles")
+
+    # -- the main path, counted
+    planar1 = C.frames_to_planar_i8(frames_d)
+    C.reset_counts()
+    pano1 = vs.composite(frames)
+    out1 = mb.multiband_video_frame(planar1, st, crop_yx)
+    torch.cuda.synchronize()
+    launches1 = C.read_counts()
+    C.reset_counts()
+    out8 = mb.multiband_video_frames_batched(planar8, st, crop_yx)
+    torch.cuda.synchronize()
+    launches8 = C.read_counts()
+    # the single-frame-set entry point of the warp stage, on its own (the
+    # main path goes through the batched one at B=1, as the reference's does)
+    C.reset_counts()
+    x_single = m2.composite_mat2_planar_pieces(planar1, ml, Nv)
+    torch.cuda.synchronize()
+    launches_single = C.read_counts()
+    print(f"multiband main path launches: composite + frame "
+          f"{launched(launches1)}; batched B=8 {launched(launches8)}",
+          flush=True)
+    if tuple(out8.shape) != (8, 3) + PANO_HW or out8.dtype != torch.uint8:
+        fail(f"multiband output is {tuple(out8.shape)} {out8.dtype}")
+    if not torch.equal(torch.from_numpy(pano1).to(dev).permute(2, 0, 1), out1):
+        fail("composite and multiband_video_frame differ")
+
+    # -- gate 1: the warp kernel against its plain version
+    x1 = m2.composite_mat2_planar_pieces_batched(planar1[None], ml, Nv)
+    x8 = m2.composite_mat2_planar_pieces_batched(planar8, ml, Nv)
+    plain8 = chunked(lambda p: m2.composite_mat2_pieces_plain(p, ml, Nv),
+                     planar8, step=2)
+    err1 = float((x1[0].float() - m2.composite_mat2_pieces_plain(
+        planar1[None], ml, Nv)[0].float()).abs().max())
+    err8 = float((x8.float() - plain8.float()).abs().max())
+    err_single = float((x_single.float() - x1[0].float()).abs().max())
+    for b in range(8):
+        if not torch.equal(m2.composite_mat2_planar_pieces(planar8[b], ml, Nv),
+                           x8[b]):
+            fail(f"warp stage: batched output {b} differs from the single "
+                 "one")
+    fb_vals = x8.transpose(1, 2).reshape(8, 3, npix)[:, :, ml.fb_pix]
+    if float(fb_vals.float().max()) == 0:
+        fail("the fallback tiles of the warp stage are empty")
+    del fb_vals, x1, x_single
+    # -- gate 2: the blended panorama with the kernel == the same chain fed
+    # by the plain warp
+    if not torch.equal(mb.multiband_blend_windows(plain8, st, crop_yx), out8):
+        fail("multiband output with the kernel differs from the chain fed "
+             "by the plain warp")
+    del plain8
+    # -- gate 3: batched == single, every frame set
+    for b in range(8):
+        if not torch.equal(mb.multiband_video_frame(planar8[b], st, crop_yx),
+                           out8[b]):
+            fail(f"multiband batched output {b} differs from the single one")
+    # far from the seams a Laplacian blend gives the seam composite back, up
+    # to the bfloat16 storage of the pyramid levels
+    oracle = C.composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
+    diff = (out1.int() - oracle.int()).abs().float()
+    seam_med, seam_within8 = float(diff.median()), float((diff <= 8).float()
+                                                         .mean())
+    covered = float((out1 > 0).float().mean())
+    print(f"multiband vs seam-select gather: median |diff| {seam_med}, "
+          f"within 8: {seam_within8:.4f}; non-zero share {covered:.4f}",
+          flush=True)
+    if covered < 0.9 or seam_med > 3:
+        fail("the multiband panorama is empty or far from the seam composite")
+    del oracle, diff
+
+    # -- times
+    need = mat2_needs(torch, ml, m2)
+
+    def pieces_bound(B):
+        # frame sectors the taps touch, B times; the state as read; 2 bytes
+        # a value out. Operations as mat2, plus a convert a value
+        return bound(B * need["frame_bytes"] + need["lut_bytes"]
+                     + B * 3 * npix * 2,
+                     B * 3 * (15 * need["kernel_px"]
+                              + 17 * need["fallback_px"] + 1 * npix))
+
+    rows = []
+    for k, B, n_launch, err, path, fn in (
+            (m2.PIECES_BATCHED, 1, launches1[m2.PIECES_BATCHED.name], err1,
+             "composite, multiband_video_frame",
+             lambda: m2.composite_mat2_planar_pieces_batched(planar1[None],
+                                                             ml, Nv)),
+            (m2.PIECES_BATCHED, 8, launches8[m2.PIECES_BATCHED.name], err8,
+             "multiband_video_frames_batched",
+             lambda: m2.composite_mat2_planar_pieces_batched(planar8, ml,
+                                                             Nv)),
+            (m2.PIECES_SINGLE, 1, launches_single[m2.PIECES_SINGLE.name],
+             err_single, "composite_mat2_planar_pieces (own entry point)",
+             lambda: m2.composite_mat2_planar_pieces(planar1, ml, Nv))):
+        planar = planar8[:B]
+        rows.append(kernel_row(
+            k, "composite_mat2.cu",
+            "composite_mat2.py:" + ("986" if k is m2.PIECES_SINGLE
+                                    else "1029"),
+            n_launch, err, event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, lambda: m2.composite_mat2_pieces_plain(
+                planar, ml, Nv), reps=1, warmup=1),
+            *pieces_bound(B),
+            # no one PyTorch call computes the integer-weight gather
+            library_ms=None, batch=B, path=path))
+    zero_ms = event_ms(torch, x8.zero_, reps=10, warmup=2)
+    del x8
+
+    def stage_split(planar):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def on_stage(name):
+            marks.append((name, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+
+        mb.multiband_video_frames_batched(planar, st, crop_yx, on_stage)
+        torch.cuda.synchronize()
+        return {name: a.elapsed_time(b) for (_, a), (name, b)
+                in zip(marks, marks[1:])}
+
+    stage_split(planar8)
+    split8 = stage_split(planar8)
+    ms8 = event_ms(torch, lambda: mb.multiband_video_frames_batched(
+        planar8, st, crop_yx), reps=3, warmup=1)
+    metrics = {
+        "fps_batched_b8": 8 / (ms8 / 1e3), "batched_call_ms_b8": ms8,
+        "stage_ms_b8": split8,
+        "b1_latency_host": latency(torch, lambda: vs.composite(frames), 10),
+        "b1_latency_device": latency(
+            torch, lambda: mb.multiband_video_frame(planar1, st, crop_yx), 20),
+        "load_registration_s": load_s, "build_multiband_state_s": build_s,
+        "zero_fill_ms_b8": zero_ms, "uncovered_share": uncovered,
+        "fallback_tiles": ml.n_fallback, "windows": Nv,
+        "window_hw": list(st.buf_hw), "bands": st.bands,
+        "vs_seam_select": {"median": seam_med, "within8": seam_within8},
+        "needs": need,
+    }
+    del out1, out8, vs, st, ml
+
+    # -- gate 4: a reduced registration, the card against the same code on
+    # the CPU, within the tolerance of tests/test_torch_multiband.py (median
+    # 0, <= 1 step on <= 1% of values, none above 2)
+    small_hw = (128, 512)
+    small = multiband_registration(C.seed, small_hw, step=200, width=260,
+                                   canvas_h=128, f_src=150.0)
+    rng = np.random.default_rng(C.seed + 4)
+    worst, share = 0, 0.0
+    pair = [C.VideoStitcher(cfg, device=d) for d in ("cuda", "cpu")]
+    for v in pair:
+        save_and_load(v, small)
+    for _ in range(2):
+        fs = list(rng.integers(0, 256, (N_CAMS,) + small_hw + (3,),
+                               dtype=np.uint8))
+        got, want = (v.composite(fs).astype(np.int16) for v in pair)
+        d = np.abs(got - want)
+        worst, share = max(worst, int(d.max())), max(share,
+                                                     float((d > 0).mean()))
+        if np.median(d) != 0 or (got > 0).mean() < 0.5:
+            fail("reduced multiband panorama: empty or median |diff| != 0")
+    print(f"multiband, reduced registration, card vs CPU: max |diff| {worst}, "
+          f"differing share {share:.6f}", flush=True)
+    if worst > 2 or share > 0.01:
+        fail("the card's multiband panorama misses the CPU's tolerance")
+    metrics["card_vs_cpu"] = {"max_abs_diff": worst, "differing_share": share}
+    print("multiband: warp kernel bit-exact against its plain version, "
+          "batched == single, kernel chain == plain-warp chain", flush=True)
+    return rows, metrics
+
+
+# -- the window-copy probe ----------------------------------------------------
+
+def phase_probe(C):
+    torch, wp, dev = C.torch, C.wp, C.dev
+    H, W, NWIN = 1088, 1920, 512                # the TPU probe's sizes
+    rng = np.random.default_rng(C.seed + 3)
+    frame = torch.from_numpy(rng.integers(-128, 127, (3, H, W),
+                                          dtype=np.int8)).to(dev)
+    window_bytes = NWIN * 3 * wp.WIN_H * wp.WIN_W
+    rows, metrics = [], {}
+    for align in (128, 32, 16, 8, 4):
+        oy = rng.integers(0, (H - wp.WIN_H) // 8, NWIN) * 8
+        ox = rng.integers(0, (W - wp.WIN_W) // align, NWIN) * align
+        org = torch.from_numpy(np.stack([oy, ox], 1).astype(np.int32)).to(dev)
+        C.reset_counts()
+        got = wp.window_probe(frame, org, align)
+        torch.cuda.synchronize()
+        launches = wp.WINDOW_PROBE.launches
+        want = wp.window_probe_plain(frame, org)
+        err = 0.0 if torch.equal(got, want) else \
+            float((got - want).abs().nan_to_num(nan=float("inf")).max())
+        # every distinct frame byte under a window once, the origins, the sums
+        touched = torch.zeros((H, W), dtype=torch.bool, device=dev)
+        touched[wp.window_index(org)] = True
+        nbytes = 3 * int(touched.sum()) + org.numel() * 4 + got.numel() * 4
+        ms = event_ms(torch, lambda: wp.window_probe(frame, org, align),
+                      reps=50, warmup=5)
+        rows.append(kernel_row(
+            wp.WINDOW_PROBE, "window_probe.cu", "test_misaligned_dma.py:21",
+            launches, err, ms,
+            event_ms(torch, lambda: wp.window_probe_plain(frame, org),
+                     reps=3, warmup=1),
+            *bound(nbytes, window_bytes),        # one add a window byte
+            # no one PyTorch call sums windows at given origins
+            library_ms=None, replaces_in="scripts/", align=align,
+            copy_bytes=wp.copy_bytes(align),
+            window_gb_per_s=window_bytes / (ms * 1e-3) / 1e9))
+        # the same at 32 times the windows, where a call lasts long enough
+        # for the copy rate, not the launch, to set its time
+        many = org.repeat(32, 1)
+        many_ms = event_ms(torch, lambda: wp.window_probe(frame, many, align),
+                           reps=10, warmup=2)
+        if not torch.equal(wp.window_probe(frame, many, align)[:NWIN], want):
+            fail(f"window_probe at {many.shape[0]} windows differs")
+        metrics[f"align{align}"] = {
+            "ms": ms, "copy_bytes": wp.copy_bytes(align),
+            "window_gb_per_s": rows[-1]["window_gb_per_s"],
+            "distinct_bytes": nbytes, "windows_x32_ms": many_ms,
+            "windows_x32_gb_per_s": 32 * window_bytes / (many_ms * 1e-3) / 1e9}
+        print(f"window_probe align {align} ({wp.copy_bytes(align)}-byte "
+              f"copies): {ms * 1e3:.2f} us, "
+              f"{rows[-1]['window_gb_per_s']:.1f} GB/s of window bytes, "
+              f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us; at {many.shape[0]} "
+              f"windows {many_ms * 1e3:.1f} us, "
+              f"{metrics[f'align{align}']['windows_x32_gb_per_s']:.1f} GB/s",
+              flush=True)
+    # an origin off the frame or off its alignment comes back as NaN
+    bad = torch.tensor([[H - 8, 0], [0, 130]], dtype=torch.int32, device=dev)
+    if not bool(wp.window_probe(frame, bad, 128).isnan().all()):
+        fail("window_probe copied a window it must refuse")
+    print("window_probe: bit-exact against the plain version at every "
+          "alignment", flush=True)
+    return rows, metrics
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -799,11 +1123,13 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     try:
         from stitchingvideo_tpu_torch import StitchConfig, VideoStitcher
+        from stitchingvideo_tpu_torch.blend import multiband_video as mb
         from stitchingvideo_tpu_torch.ops import _cuda
         from stitchingvideo_tpu_torch.ops import composite as tiled
         from stitchingvideo_tpu_torch.ops import composite_feather as fe
         from stitchingvideo_tpu_torch.ops import composite_mat as mat
         from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
+        from stitchingvideo_tpu_torch.ops import window_probe as wp
         from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
         from stitchingvideo_tpu_torch.video.lut import (CompositeLUT,
                                                         composite_frame_u8)
@@ -813,7 +1139,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     kernels = (m2.MAT2_SINGLE, m2.MAT2_BATCHED, m2.SHIFT_BN, mat.MAT_SINGLE,
                mat.MAT_BATCHED, tiled.TILED, fe.FEATHER_SINGLE,
-               fe.FEATHER_BATCHED)
+               fe.FEATHER_BATCHED, m2.PIECES_SINGLE, m2.PIECES_BATCHED,
+               wp.WINDOW_PROBE)
 
     def reset_counts():
         for k in kernels:
@@ -840,7 +1167,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
     C = types.SimpleNamespace(
         torch=torch, dev=dev, seed=args.seed, m2=m2, mat=mat, tiled=tiled,
-        fe=fe, StitchConfig=StitchConfig, VideoStitcher=VideoStitcher,
+        fe=fe, mb=mb, wp=wp, StitchConfig=StitchConfig,
+        VideoStitcher=VideoStitcher,
         CompositeLUT=CompositeLUT, composite_frame_u8=composite_frame_u8,
         frames_to_planar_i8=mat.frames_to_planar_i8,
         planar_to_hwc=mat.planar_to_hwc, remap_tiled=remap_tiled,
@@ -853,10 +1181,12 @@ def main() -> None:
                                  synthetic_lut(args.seed, poison=False))))
     print(f"rig: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # -- 4-7. the paths ------------------------------------------------
+    # -- 4-9. the paths ------------------------------------------------
     rows, metrics = [], {"card": card, "kind": kind, "build_s": build_s}
     for name, phase in (("mat2", phase_mat2), ("mat", phase_mat),
-                        ("tiled", phase_tiled), ("feather", phase_feather)):
+                        ("tiled", phase_tiled), ("feather", phase_feather),
+                        ("multiband", phase_multiband),
+                        ("window_probe", phase_probe)):
         t0 = time.perf_counter()
         phase_rows, metrics[name] = phase(C)
         rows += phase_rows

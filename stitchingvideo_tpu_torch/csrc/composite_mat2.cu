@@ -5,7 +5,9 @@
 //   K2  _make_kernel (:388), the single-frame-set kernel.
 // One kernel with the batch B as a parameter serves both (B = 1 for K2).
 // The file also holds K5, the single-class kernel of composite_mat.py, which
-// is the same integer path without the fallback branch (see below).
+// is the same integer path without the fallback branch, and the pieces
+// variant of K1/K2, the multiband warp stage, which is the same pixel
+// function stored as bfloat16 windows (both below).
 //
 // What it computes, per panorama pixel p and frame set b and channel c:
 //   S   = a*ay*v00 + (127-a)*ay*v01 + a*(127-ay)*v10 + (127-a)*(127-ay)*v11
@@ -38,6 +40,7 @@
 // the 2x2 reuse is served by L1/L2. cp.async/TMA staging of source rows and
 // wider stores come in later changes.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,23 +48,51 @@ namespace {
 constexpr int kUncovered = -1;
 constexpr int kFallback = -2;
 
-__device__ __forceinline__ uint8_t to_u8(float r) {
-  return (uint8_t)fminf(fmaxf(rintf(r), 0.0f), 255.0f);
+// round half to even, clamp to 0..255
+__device__ __forceinline__ float quantize(float r) {
+  return fminf(fmaxf(rintf(r), 0.0f), 255.0f);
+}
+
+// Where one pixel's value of frame set b and channel c goes. The pixel
+// functions below are templated on one of these.
+// The panorama, [B, 3, npix] uint8:
+struct PanoU8 {
+  uint8_t* __restrict__ out;   // already at pixel p
+  long long npix;
+  __device__ __forceinline__ void operator()(int b, int c, float r) const {
+    out[((long long)b * 3 + c) * npix] = (uint8_t)quantize(r);
+  }
+};
+// The window stack, [B, pieces, 3, win] bfloat16 (0..255 are exact in it):
+struct WindowsBf16 {
+  __nv_bfloat16* __restrict__ out;   // already at (piece, channel 0, pixel)
+  long long win;                     // pixels of one window
+  int planes;                        // pieces * 3, the planes of a frame set
+  __device__ __forceinline__ void operator()(int b, int c, float r) const {
+    out[((long long)b * planes + c) * win] = __float2bfloat16_rn(quantize(r));
+  }
+};
+
+// An uncovered pixel: 0 in every frame set and channel.
+template <class Store>
+__device__ __forceinline__ void zero_pixel(Store store, int B) {
+  for (int b = 0; b < B; ++b)
+    for (int c = 0; c < 3; ++c) store(b, c, 0.0f);
 }
 
 // The exact float gather of one fallback-tile pixel, for every frame set.
 // Not inlined: inlined, it slowed the integer path of every other pixel by
 // 15-21% on the H100 at the product size (same 40 registers); out of line
 // the kernel is within 3-7% of one without a fallback path (PERF.md).
+template <class Store>
 __device__ __noinline__ void fallback_pixel(
     const int8_t* __restrict__ frames, int j,
     const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
     const float* __restrict__ fb_sy, const float* __restrict__ fb_gain,
-    uint8_t* __restrict__ out, long long p, int B, int N, int H, int W,
-    long long npix) {
+    Store store, int B, int N, int H, int W) {
   const int cam = fb_cam[j];
   if (cam < 0) {
-    for (int bc = 0; bc < B * 3; ++bc) out[bc * npix + p] = 0;
+    zero_pixel(store, B);
     return;
   }
   const float sx = fb_sx[j], sy = fb_sy[j], gain = fb_gain[j];
@@ -83,18 +114,18 @@ __device__ __noinline__ void fallback_pixel(
       v = __fadd_rn(v, __fmul_rn(w01, __fadd_rn((float)src[o01], 128.0f)));
       v = __fadd_rn(v, __fmul_rn(w10, __fadd_rn((float)src[o10], 128.0f)));
       v = __fadd_rn(v, __fmul_rn(w11, __fadd_rn((float)src[o11], 128.0f)));
-      out[((long long)b * 3 + c) * npix + p] = to_u8(__fmul_rn(v, gain));
+      store(b, c, __fmul_rn(v, gain));
     }
   }
 }
 
 // The integer path of one covered pixel, for every frame set: the 4 taps
 // with their integer weights, the float tail, the store. Shared by the mat2
-// kernel and the single-class kernel below.
+// kernel, the single-class kernel and the pieces kernel below.
+template <class Store>
 __device__ __forceinline__ void integer_pixel(
-    const int8_t* __restrict__ frames, int cw, int xy, float g,
-    uint8_t* __restrict__ out, long long p, int B, int N, int H, int W,
-    long long npix) {
+    const int8_t* __restrict__ frames, int cw, int xy, float g, Store store,
+    int B, int N, int H, int W) {
   const float kInv = (float)(1.0 / 16129.0);   // f32(1 / 127^2)
   const int cam = cw >> 16;
   const int a = (cw >> 8) & 0xff;
@@ -116,10 +147,30 @@ __device__ __forceinline__ void integer_pixel(
       const int s = w00 * src[o00] + w01 * src[o01] + w10 * src[o10] +
                     w11 * src[o11];
       const float v = __fmul_rn(__int2float_rn(s), kInv);
-      out[((long long)b * 3 + c) * npix + p] =
-          to_u8(__fmul_rn(__fadd_rn(v, 128.0f), g));
+      store(b, c, __fmul_rn(__fadd_rn(v, 128.0f), g));
     }
   }
+}
+
+// Pixel p of a mat2 state: uncovered, fallback or integer path.
+template <class Store>
+__device__ __forceinline__ void mat2_pixel(
+    const int8_t* __restrict__ frames, const int32_t* __restrict__ tap_xy,
+    const int32_t* __restrict__ tap_cw, const float* __restrict__ gc,
+    const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
+    const float* __restrict__ fb_sy, const float* __restrict__ fb_gain,
+    long long p, Store store, int B, int N, int H, int W) {
+  const int cw = tap_cw[p];
+  if (cw == kUncovered) {
+    zero_pixel(store, B);
+    return;
+  }
+  if (cw == kFallback) {
+    fallback_pixel(frames, tap_xy[p], fb_cam, fb_sx, fb_sy, fb_gain, store, B,
+                   N, H, W);
+    return;
+  }
+  integer_pixel(frames, cw, tap_xy[p], gc[p], store, B, N, H, W);
 }
 
 __global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
@@ -135,17 +186,39 @@ __global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
                                       long long npix) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
-  const int cw = tap_cw[p];
-  if (cw == kUncovered) {
-    for (int bc = 0; bc < B * 3; ++bc) out[bc * npix + p] = 0;
-    return;
-  }
-  if (cw == kFallback) {
-    fallback_pixel(frames, tap_xy[p], fb_cam, fb_sx, fb_sy, fb_gain, out, p,
-                   B, N, H, W, npix);
-    return;
-  }
-  integer_pixel(frames, cw, tap_xy[p], gc[p], out, p, B, N, H, W, npix);
+  mat2_pixel(frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, p,
+             PanoU8{out + p, npix}, B, N, H, W);
+}
+
+// The pieces variant of K1/K2, the warp stage of the multiband video mode
+// (stitchingvideo_tpu/ops/pallas/composite_mat2.py:
+// composite_mat2_planar_pieces (:986) and composite_mat2_planar_pieces_batched
+// (:1029), the quantize=True / out_dtype=bf16 path of
+// _make_kernel_tile_batched, :752-763). The state is a mat2 state over the
+// window stack: `pieces` windows of `win` pixels each, one camera a window,
+// the seam mask folded into the coverage. Pixel p of the stack is pixel
+// p % win of window p / win; its value, quantised to 0..255 as the panorama's
+// would be, is stored as bfloat16 into [B, pieces, 3, win], so that each
+// window's three planes lie together for the pyramids that follow. The
+// reference drops tile groups without a covered pixel from its grid over a
+// zero-filled output; here every thread writes, an uncovered one its zeros
+// (about 40% of the stack at the product size), which costs a 4-byte read
+// where a zero-fill pass would write the same bytes a second time.
+// Bound on the card: memory bytes, as mat2, with 2 bytes a value written.
+__global__ void composite_mat2_pieces_kernel(
+    const int8_t* __restrict__ frames, const int32_t* __restrict__ tap_xy,
+    const int32_t* __restrict__ tap_cw, const float* __restrict__ gc,
+    const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
+    const float* __restrict__ fb_sy, const float* __restrict__ fb_gain,
+    __nv_bfloat16* __restrict__ out, int B, int N, int H, int W, int pieces,
+    long long win) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= pieces * win) return;
+  const long long piece = p / win;
+  mat2_pixel(frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, p,
+             WindowsBf16{out + piece * 3 * win + (p - piece * win), win,
+                         pieces * 3},
+             B, N, H, W);
 }
 
 // K5, the single-class materialized kernel ("mat",
@@ -170,11 +243,12 @@ __global__ void composite_mat_kernel(const int8_t* __restrict__ frames,
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
   const int cw = tap_cw[p];
+  const PanoU8 store{out + p, npix};
   if (cw < 0) {
-    for (int bc = 0; bc < B * 3; ++bc) out[bc * npix + p] = 0;
+    zero_pixel(store, B);
     return;
   }
-  integer_pixel(frames, cw, tap_xy[p], gc[p], out, p, B, N, H, W, npix);
+  integer_pixel(frames, cw, tap_xy[p], gc[p], store, B, N, H, W);
 }
 
 }  // namespace
@@ -194,6 +268,23 @@ extern "C" int composite_mat2_launch(const void* frames, const void* tap_xy,
       (const float*)gc, (const int32_t*)fb_cam, (const float*)fb_sx,
       (const float*)fb_sy, (const float*)fb_gain, (uint8_t*)out, B, N, H, W,
       npix);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int composite_mat2_pieces_launch(
+    const void* frames, const void* tap_xy, const void* tap_cw,
+    const void* gc, const void* fb_cam, const void* fb_sx, const void* fb_sy,
+    const void* fb_gain, void* out, int B, int N, int H, int W, int pieces,
+    long long win, void* stream) {
+  if (pieces <= 0 || win <= 0 || B <= 0) return 0;
+  const int threads = 256;
+  const long long blocks = (pieces * win + threads - 1) / threads;
+  composite_mat2_pieces_kernel<<<(unsigned)blocks, threads, 0,
+                                 (cudaStream_t)stream>>>(
+      (const int8_t*)frames, (const int32_t*)tap_xy, (const int32_t*)tap_cw,
+      (const float*)gc, (const int32_t*)fb_cam, (const float*)fb_sx,
+      (const float*)fb_sy, (const float*)fb_gain, (__nv_bfloat16*)out, B, N,
+      H, W, pieces, win);
   return (int)cudaGetLastError();
 }
 

@@ -139,11 +139,20 @@ SHIFT_PLANAR_BN = KernelLibrary("shift_planar_bn",
 # frames, tap_xy, tap_cw, gc, out, B, N, H, W, npix, stream
 COMPOSITE_MAT = KernelLibrary("composite_mat2", [_P] * 5 +
                               [_I, _I, _I, _I, _L, _P], entry="composite_mat")
+# the multiband warp stage, in mat2's source too (the same pixel function,
+# stored as bf16 windows): frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy,
+# fb_gain, out, B, N, H, W, pieces, window pixels, stream
+COMPOSITE_MAT2_PIECES = KernelLibrary("composite_mat2", [_P] * 9 +
+                                      [_I, _I, _I, _I, _I, _L, _P],
+                                      entry="composite_mat2_pieces")
 # frames, sx, sy, gain, cidx, out, N, H, W, ntx, T, Hp, Wp, stream
 COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])
 # frames, tap_xy, tap_cw, gw (each [2, npix]), fb_cam, fb_sx, fb_sy, fb_gw
 # (each [F, 2]), out, B, N, H, W, npix, stream
 COMPOSITE_FEATHER = KernelLibrary("composite_feather", [_P] * 9 +
                                   [_I, _I, _I, _I, _L, _P])
-LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN, COMPOSITE_MAT, COMPOSITE_TILED,
-             COMPOSITE_FEATHER)
+# frame, origins, out, nwin, H, W, bytes a copy, blocks, stream
+WINDOW_PROBE = KernelLibrary("window_probe", [_P] * 3 + [_I] * 5 + [_P])
+LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN, COMPOSITE_MAT,
+             COMPOSITE_MAT2_PIECES, COMPOSITE_TILED, COMPOSITE_FEATHER,
+             WINDOW_PROBE)

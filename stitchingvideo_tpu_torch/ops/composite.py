@@ -159,6 +159,36 @@ def build_tiled_lut(lut, frame_hw: Tuple[int, int]) -> TiledLUT:
         n_cams=int(camf.max()) + 1 if camf.numel() else 0)
 
 
+def concat_tiled_luts(luts, cams) -> TiledLUT:
+    """Concatenate per-piece single-camera TiledLUTs into one multi-camera
+    LUT, so that one launch warps every piece (the multiband window stack).
+
+    Each input LUT was built against one camera (cam_idx in {0, -1});
+    tile_cam and cidx are rewritten to the real camera index `cams[p]`. All
+    pieces must share grid and frame shapes. The result's panorama is the
+    pieces' tile grids stacked along rows."""
+    nty, ntx = luts[0].grid_hw
+    fhw = luts[0].frame_hw
+    if not all(l.grid_hw == (nty, ntx) and l.frame_hw == fhw for l in luts):
+        raise ValueError("pieces differ in grid or frame shape")
+
+    def cat(f):
+        return torch.cat([getattr(l, f) for l in luts], dim=0)
+
+    return TiledLUT(
+        sx=cat("sx"), sy=cat("sy"), gain=cat("gain"),
+        cidx=torch.cat([torch.where(l.cidx >= 0, int(c), -1).to(torch.int32)
+                        for l, c in zip(luts, cams)], dim=0),
+        tile_cam=torch.cat([torch.full_like(l.tile_cam, int(c))
+                            for l, c in zip(luts, cams)], dim=0),
+        tile_org=cat("tile_org"), tile_band=cat("tile_band"),
+        fallback=cat("fallback"),
+        n_fallback=sum(l.n_fallback for l in luts),
+        grid_hw=(len(luts) * nty, ntx),
+        pano_hw=(len(luts) * nty * TILE_H, ntx * TILE_W), frame_hw=fhw,
+        n_cams=max(int(c) for c in cams) + 1)
+
+
 # -- the on-the-fly kernel (kernel='tiled') ---------------------------------
 
 TILED = _cuda.CudaKernel("composite_tiled", _cuda.COMPOSITE_TILED)

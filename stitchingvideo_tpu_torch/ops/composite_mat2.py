@@ -46,6 +46,11 @@ MAT2_SINGLE = _cuda.CudaKernel("composite_mat2_planar", _cuda.COMPOSITE_MAT2)
 MAT2_BATCHED = _cuda.CudaKernel("composite_mat2_planar_batched",
                                 _cuda.COMPOSITE_MAT2)
 SHIFT_BN = _cuda.CudaKernel("shift_planar_bn", _cuda.SHIFT_PLANAR_BN)
+# the multiband warp stage's two entry points (one CUDA kernel, bf16 windows)
+PIECES_SINGLE = _cuda.CudaKernel("composite_mat2_planar_pieces",
+                                 _cuda.COMPOSITE_MAT2_PIECES)
+PIECES_BATCHED = _cuda.CudaKernel("composite_mat2_planar_pieces_batched",
+                                  _cuda.COMPOSITE_MAT2_PIECES)
 
 
 @dataclasses.dataclass
@@ -81,6 +86,12 @@ class MatLUT2:
 
     def fields(self) -> dict:
         return unpack_taps(self.tap_xy, self.tap_cw)
+
+    def to(self, device) -> "MatLUT2":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 def pack_taps(cam, x0, a, y0, ay):
@@ -144,6 +155,24 @@ def _materialize2(tlut: TiledLUT) -> MatLUT2:
         fb_sy=sy[fb_pix], fb_gain=gain[fb_pix],
         n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
         pano_hw=(Hp, Wp), frame_hw=(fh, fw))
+
+
+def materialize2_used(tlut: TiledLUT) -> MatLUT2:
+    """The per-pixel state of a `concat_tiled_luts` window stack, for the
+    pieces entry points below.
+
+    The reference's build of this name drops every tile group without a
+    covered pixel from its launch grid, over an output the caller zero-fills.
+    The port's kernel has one thread a pixel, and a thread of an uncovered
+    pixel reads its 4-byte `tap_cw` and writes the zeros itself: a list of
+    used blocks would save that read but pay a zero-fill pass over the whole
+    output first, which writes the same bytes. So the state is
+    `_materialize2`'s, with nothing added, and the function computed is the
+    same."""
+    if tlut.pano_hw[0] * tlut.pano_hw[1] >= 1 << 31:
+        raise ValueError(f"window stack {tlut.pano_hw} too large for int32 "
+                         "pixel indices")
+    return _materialize2(tlut)
 
 
 def bilinear_taps(sx, sy, H: int, W: int):
@@ -297,6 +326,68 @@ def composite_mat2_planar_batched(planar_b_i8: torch.Tensor,
     set bit-identical to `composite_mat2_planar`. One launch for the whole
     batch: the LUT is read once for B frame sets."""
     return _composite(planar_b_i8, ml, MAT2_BATCHED)
+
+
+def _window_hw(ml: MatLUT2, pieces: int) -> Tuple[int, int]:
+    Hs, Wb = ml.pano_hw
+    if pieces < 1 or Hs % pieces:
+        raise ValueError(f"a window stack of {Hs} rows does not split into "
+                         f"{pieces} pieces")
+    return Hs // pieces, Wb
+
+
+def composite_mat2_pieces_plain(planar_b_i8: torch.Tensor, ml: MatLUT2,
+                                pieces: int) -> torch.Tensor:
+    """Plain PyTorch version of the pieces kernel: the mat2 composite of the
+    window stack (integer gather, fallback tiles' float gather, rounded half
+    to even and clamped to 0..255), cut into its windows and cast to
+    bfloat16, which holds 0..255 exactly:
+    [B, N, 3, H, W] int8 -> [B, pieces, 3, Hb, Wb] bfloat16. The CPU path,
+    and the version the kernel is held against on the card."""
+    Hb, Wb = _window_hw(ml, pieces)
+    B = planar_b_i8.shape[0]
+    out = composite_mat2_plain(planar_b_i8, ml)      # [B, 3, pieces*Hb, Wb]
+    return out.reshape(B, 3, pieces, Hb, Wb).transpose(1, 2) \
+              .to(torch.bfloat16).contiguous()
+
+
+def _composite_pieces(planar_b: torch.Tensor, ml: MatLUT2, pieces: int,
+                      kernel: _cuda.CudaKernel) -> torch.Tensor:
+    if planar_b.device.type == "cpu":
+        return composite_mat2_pieces_plain(planar_b, ml, pieces)
+    if planar_b.device.type != "cuda":
+        raise ValueError(f"no kernel for device {planar_b.device}")
+    check_frames(planar_b, ml)
+    Hb, Wb = _window_hw(ml, pieces)
+    B, N, _, H, W = planar_b.shape
+    out = torch.empty((B, pieces, 3, Hb, Wb), dtype=torch.bfloat16,
+                      device=planar_b.device)
+    kernel.launch(*(t.data_ptr() for t in (
+                      planar_b, ml.tap_xy, ml.tap_cw, ml.gc, ml.fb_cam,
+                      ml.fb_sx, ml.fb_sy, ml.fb_gain, out)),
+                  B, N, H, W, pieces, Hb * Wb,
+                  torch.cuda.current_stream(planar_b.device).cuda_stream)
+    return out
+
+
+def composite_mat2_planar_pieces(planar_i8: torch.Tensor, ml: MatLUT2,
+                                 pieces: int) -> torch.Tensor:
+    """The multiband video path's warp stage for one frame set:
+    [N, 3, H, W] int8 (value-128) + a `materialize2_used` state over a
+    `concat_tiled_luts` window stack -> [pieces, 3, Hb, Wb] bfloat16 warped
+    windows: uint8-quantised values with the gain and the folded seam mask
+    applied, uncovered pixels exactly 0. On a CUDA tensor it launches the
+    kernel (B = 1); on a CPU tensor it runs the plain version."""
+    return _composite_pieces(planar_i8[None], ml, pieces, PIECES_SINGLE)[0]
+
+
+def composite_mat2_planar_pieces_batched(planar_b_i8: torch.Tensor,
+                                         ml: MatLUT2,
+                                         pieces: int) -> torch.Tensor:
+    """Micro-batch: [B, N, 3, H, W] int8 -> [B, pieces, 3, Hb, Wb] bfloat16,
+    per frame set bit-identical to `composite_mat2_planar_pieces`. Any B in
+    one launch: the state is read once for B frame sets."""
+    return _composite_pieces(planar_b_i8, ml, pieces, PIECES_BATCHED)
 
 
 def shift_planar_bn_plain(planar_b_i8: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,17 @@
 """Video runtime: the serving subset of the cached-registration compositor.
 
-Port of `stitchingvideo_tpu/video/runtime.py` for the seam-select hot loop
-(`compose_mode='lut'`, kernels `mat2`, `mat`, `tiled` and the plain
-`gather`) and the feather hot loop (`compose_mode='feather'`): load or
-install a registration, then composite one frame set or a micro-batch
-through the mode's kernel. A state swap is an atomic reference assignment
-under a lock, and the output canvas is frozen to the first registration's
-shape.
+Port of `stitchingvideo_tpu/video/runtime.py` for the three hot-loop modes:
+seam-select (`compose_mode='lut'`, kernels `mat2`, `mat`, `tiled` and the
+plain `gather`), `'feather'` and `'multiband'`. Load or install a
+registration, then composite one frame set (or, in the first two modes, a
+micro-batch) through the mode's kernel. A state swap is an atomic reference
+assignment under a lock, and the output canvas is frozen to the first
+registration's shape.
 
 Still to port, each raising `NotImplementedError` with its ROADMAP.md item:
-the multiband mode (item 17), registration itself (`register`, items 9-15,
-and `run` with its re-registration thread, item 15), the full blend that
-feather falls back to without a kernel state (item 19) and canvas sharding
-(item 22).
+registration itself (`register`, items 9-15, and `run` with its
+re-registration thread, item 15), the full blend that feather and multiband
+fall back to without a kernel state (item 19) and canvas sharding (item 22).
 """
 from __future__ import annotations
 
@@ -25,6 +24,8 @@ import torch
 
 from ..config import StitchConfig
 from ..device import resolve_device
+from ..blend.multiband_video import (build_multiband_state,
+                                     multiband_video_frame)
 from ..models.registration import Registration
 from ..ops.composite import build_tiled_lut, composite_tiled
 from ..ops.composite_feather import (BlendLUT, build_blend_lut,
@@ -82,7 +83,7 @@ class FrameStats:
 
 
 class VideoStitcher:
-    """Seam-select and feather hot loops on one device.
+    """Seam-select, feather and multiband hot loops on one device.
 
     device: 'cuda' unless given; with no CUDA present the default raises
     (there is no silent CPU fallback). `device="cpu"` runs the kernels'
@@ -91,11 +92,7 @@ class VideoStitcher:
     def __init__(self, config: Optional[StitchConfig] = None, device=None):
         cfg = config or StitchConfig()
         v = cfg.video
-        if v.compose_mode == "multiband":
-            raise NotImplementedError(
-                "compose_mode='multiband' is the next slice of the port "
-                f"({_ROADMAP}, item 17); 'lut' and 'feather' are ported")
-        if v.compose_mode not in ("lut", "feather"):
+        if v.compose_mode not in ("lut", "feather", "multiband"):
             raise ValueError(f"unknown compose_mode {v.compose_mode!r}")
         if v.kernel not in ("auto", "mat2", "mat", "tiled", "gather"):
             raise ValueError(f"unknown kernel {v.kernel!r}")
@@ -112,6 +109,8 @@ class VideoStitcher:
         self._tlut = None
         self._ftlut = None                 # ("fmat", FeatherMatLUT) or None
         self._ftlut_reg = None             # the Registration it was built from
+        self._mbtlut = None                # (MultibandVideoState, crop_yx)
+        self._mbtlut_reg = None            # the Registration it was built from
         self._reg: Optional[Registration] = None
         self._out_shape: Optional[tuple] = None
         self._frame_hw: Optional[tuple] = None
@@ -135,20 +134,25 @@ class VideoStitcher:
         """Atomically swap in a composite LUT (the double-buffered UpdateMat
         step, 64-bit driver :696-722); the entry point for loaded state.
         In 'lut' mode it builds the configured kernel's state; in 'feather'
-        mode, given the registration, the feather state. A build that fails
-        raises, and so does a LUT with fallback tiles under kernel 'mat' or
-        'tiled' (`ValueError`); the previous state then stays live."""
+        and 'multiband' mode, given the registration, that mode's state. A
+        build that fails raises, and so does a LUT with fallback tiles under
+        kernel 'mat' or 'tiled' (`ValueError`); the previous state then
+        stays live (the reference swallows a failed feather or multiband
+        build and demotes to its full blend)."""
         lut = lut.to(self.device)
         frame_hw = tuple(int(x) for x in frame_hw)
-        feather = self.cfg.video.compose_mode == "feather"
+        mode = self.cfg.video.compose_mode
         with self._lock:
             out_shape = self._out_shape or lut.shape
             if lut.shape != out_shape:
                 lut = self._fit_lut(lut, out_shape)
-            # the feather hot loop never runs the seam-select kernel
-            tlut = None if feather else self._build_tiled(lut, frame_hw)
+            # the feather and multiband hot loops never run the seam-select
+            # kernel
+            tlut = self._build_tiled(lut, frame_hw) if mode == "lut" else None
             ftlut = (self._build_feather(reg, frame_hw, out_shape)
-                     if feather and reg is not None else None)
+                     if mode == "feather" and reg is not None else None)
+            mbtlut = (self._build_multiband(reg, frame_hw)
+                      if mode == "multiband" and reg is not None else None)
             self._out_shape = out_shape
             if reg is not None:
                 self._reg = reg
@@ -156,6 +160,8 @@ class VideoStitcher:
             self._lut, self._tlut = lut, tlut
             if ftlut is not None:
                 self._ftlut, self._ftlut_reg = ftlut, reg
+            if mbtlut is not None:
+                self._mbtlut, self._mbtlut_reg = mbtlut, reg
             self.registrations += 1
 
     def _build_tiled(self, lut: CompositeLUT, frame_hw):
@@ -184,6 +190,27 @@ class VideoStitcher:
         """The feather kernel state from a registration."""
         return ("fmat", build_feather_mat(self._blend_lut(reg, out_shape),
                                           frame_hw))
+
+    def _build_multiband(self, reg: Registration, frame_hw):
+        """The multiband state from a registration: (state, crop_yx)."""
+        CW, CH = reg.canvas_wh
+        st, crop_yx = build_multiband_state(
+            reg, frame_hw, self.cfg.compose.blend_strength,
+            crop=self._crop_slices((CH, CW), reg.extent_wh))
+        return st.to(self.device), crop_yx
+
+    def build_multiband_state(self, frame_hw) -> bool:
+        """Build and swap in the multiband state of the live registration.
+        Returns False with no registration; a build that fails raises and
+        the previous state stays live."""
+        with self._lock:
+            reg = self._reg
+        if reg is None:
+            return False
+        mbtlut = self._build_multiband(reg, tuple(int(x) for x in frame_hw))
+        with self._lock:
+            self._mbtlut, self._mbtlut_reg = mbtlut, reg
+        return True
 
     def _blend_lut(self, reg: Registration, out_shape) -> BlendLUT:
         """A registration's blend LUT, cropped by the RT margins and fitted
@@ -274,17 +301,30 @@ class VideoStitcher:
         """One frame set through the cached registration: a list of HWC
         uint8 frames -> HWC uint8 panorama, through the kernel of
         cfg.video.compose_mode ('lut': seam-select; 'feather': the top-2
-        feather blend)."""
+        feather blend; 'multiband': the windowed Laplacian blend)."""
         # one snapshot: frame selection and the kernel state come from the
         # same registration even if install_lut runs concurrently
         with self._lock:
             reg = self._reg
             lut, tlut = self._lut, self._tlut
             ftlut, ft_reg = self._ftlut, self._ftlut_reg
-        if self.cfg.video.compose_mode == "feather":
+            mbt, mb_reg = self._mbtlut, self._mbtlut_reg
+        mode = self.cfg.video.compose_mode
+        if mode == "feather":
             self._need_feather(ftlut)
             batch = self._to_device(self._select_frames(frames, ft_reg or reg))
             out = self._feather_planar(batch, ftlut)
+        elif mode == "multiband":
+            if mbt is None:
+                raise RuntimeError(
+                    "multiband state not built: install a registration "
+                    "(load_registration, or install_lut with reg=) with "
+                    "compose_mode='multiband'; the full blend without a "
+                    f"cached state is not ported ({_ROADMAP}, item 19)")
+            st, crop_yx = mbt
+            batch = self._to_device(self._select_frames(frames, mb_reg or reg))
+            out = multiband_video_frame(frames_to_planar_i8(batch), st,
+                                        crop_yx=crop_yx)
         else:
             batch = self._to_device(self._select_frames(frames, reg))
             out = self._planar_with(batch, lut, tlut)
@@ -344,6 +384,12 @@ class VideoStitcher:
         mat2 and mat kernels."""
         with self._lock:
             tlut, ftlut = self._tlut, self._ftlut
+        if self.cfg.video.compose_mode == "multiband":
+            # never serve seam-select output at multiband quality unasked
+            raise RuntimeError(
+                "multiband has no micro-batch entry point on the stitcher; "
+                "batch blend.multiband_video.multiband_video_frames_batched "
+                "directly, or use compose_mode='lut' or 'feather'")
         if self.cfg.video.compose_mode == "feather":
             if ftlut is None:
                 raise RuntimeError("feather micro-batch path requires the "

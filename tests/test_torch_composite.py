@@ -110,21 +110,17 @@ def _tile_major(a, grid_hw, pano_hw, fill):
         .transpose(0, 2, 1, 3).reshape(nty * ntx, jcomp.P)
 
 
-@pytest.mark.parametrize("name", STATES)
-def test_weights_are_the_hat_matrix_nonzeros(name):
-    """On every covered pixel of a non-fallback tile, the port's global taps
-    and integer weights are the non-zeros of the reference's vx/vy
-    (`_mat_chunk_h`), mapped back through tile_org/tile_band and the class's
-    window origin — in both classes, including the last-row/column rule."""
-    ml, _ = jax_mat2(name)
-    _frames, lut = make_state(name)
-    tl = jcomp.build_tiled_lut(lut, FRAME_HW)
+def assert_hat_matrix_nonzeros(ml, tl, f, name=""):
+    """On every covered pixel of a non-fallback tile in the reference's two
+    classes (`ml`, built over the reference's TiledLUT `tl`), the port's
+    global taps and integer weights (`f`: tile-major unpacked fields) are the
+    non-zeros of the reference's vx/vy (`_mat_chunk_h`), mapped back through
+    tile_org/tile_band and the class's window origin, including the
+    last-row/column rule. Returns (pixels checked, of them on a window's last
+    row or column)."""
     fallback = np.asarray(tl.fallback)
     cidx = np.asarray(tl.cidx)[:, 0]
     T = cidx.shape[0]
-    f = {k: _tile_major(v.numpy(), tl.grid_hw, tl.pano_hw,
-                        -1 if k == "cam" else 0)
-         for k, v in port_mat2(name).fields().items()}
     G = jmat2.GROUP
     checked = last_row_or_col = 0
     for cl, win_h in ((ml.easy, jmat2.WIN_HE), (ml.hard, jmat2.WIN_HH)):
@@ -167,6 +163,27 @@ def test_weights_are_the_hat_matrix_nonzeros(name):
             assert (wt[last] == 127).all()
             last_row_or_col += int(last.sum())
         checked += int(m.sum())
+    return checked, last_row_or_col
+
+
+def tile_major_fields(port_ml, tl) -> dict:
+    """A port mat2 state's unpacked per-pixel fields, tile-major like `tl`."""
+    return {k: _tile_major(v.numpy(), tl.grid_hw, tl.pano_hw,
+                           -1 if k == "cam" else 0)
+            for k, v in port_ml.fields().items()}
+
+
+@pytest.mark.parametrize("name", STATES)
+def test_weights_are_the_hat_matrix_nonzeros(name):
+    """On every covered pixel of a non-fallback tile, the port's global taps
+    and integer weights are the non-zeros of the reference's vx/vy
+    (`_mat_chunk_h`), mapped back through tile_org/tile_band and the class's
+    window origin — in both classes, including the last-row/column rule."""
+    ml, _ = jax_mat2(name)
+    _frames, lut = make_state(name)
+    tl = jcomp.build_tiled_lut(lut, FRAME_HW)
+    f = tile_major_fields(port_mat2(name), tl)
+    checked, last_row_or_col = assert_hat_matrix_nonzeros(ml, tl, f, name)
     assert checked > 0
     if name == "easy":
         assert ml.tg_easy > 0

@@ -13,11 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from stitchingvideo_tpu_torch import StitchConfig, VideoStitcher
+from chip_smoke import multiband_registration
+from stitchingvideo_tpu_torch import (Registration, StitchConfig,
+                                      VideoStitcher)
+from stitchingvideo_tpu_torch.blend import multiband_video as mb
 from stitchingvideo_tpu_torch.ops import composite as tiled
 from stitchingvideo_tpu_torch.ops import composite_feather as fe
 from stitchingvideo_tpu_torch.ops import composite_mat as mat
 from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
+from stitchingvideo_tpu_torch.ops import window_probe as wp
 from stitchingvideo_tpu_torch.ops.composite_mat import frames_to_planar_i8
 from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
 from stitchingvideo_tpu_torch.video.lut import CompositeLUT, composite_frame_u8
@@ -284,3 +288,131 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     ml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
     with pytest.raises(ValueError):
         fe.composite_feather_planar(frames_to_planar_i8(frames), ml)
+
+
+# -- the multiband warp stage and the window-copy probe ----------------------
+
+def _multiband_state(dev, curved: bool):
+    """A reduced 5-camera registration (chip_smoke.py's rig at 128x512
+    frames, 4 bands); 'curved' widens its curvature patch so that whole
+    window tiles overflow their source window (fallback tiles)."""
+    d = multiband_registration(0, FRAME_HW, step=200, width=260,
+                               canvas_h=128, f_src=150.0)
+    d.pop("frame_hw")
+    if curved:
+        cols = np.arange(40, 240, dtype=np.float32)
+        d["xmaps"][2][56:80, 40:240] = 30.0 + 2.2 * (cols - 40)
+        d["valid"][2][56:80, 40:240] = True
+        d["seam_masks"][2][56:80, 40:240] = True
+    reg = Registration.from_state_dict(d, device=dev)
+    return mb.build_multiband_state(reg, FRAME_HW, crop=(12, 116, 10, 1050))
+
+
+@pytest.mark.parametrize("curved", (False, True), ids=("plain", "curved"))
+def test_pieces_kernel_matches_plain(dev, curved):
+    st, _ = _multiband_state(dev, curved)
+    ml, Nv = st.warp_lut, len(st.piece_cam)
+    assert (ml.n_fallback > 0) == curved
+    gen = torch.Generator(device=dev).manual_seed(5)
+    planar = torch.randint(-128, 128, (3, 5, 3) + FRAME_HW, dtype=torch.int8,
+                           device=dev, generator=gen)
+    before = m2.PIECES_SINGLE.launches, m2.PIECES_BATCHED.launches
+    got1 = m2.composite_mat2_planar_pieces(planar[0], ml, Nv)
+    got3 = m2.composite_mat2_planar_pieces_batched(planar, ml, Nv)
+    torch.cuda.synchronize()
+    assert (m2.PIECES_SINGLE.launches, m2.PIECES_BATCHED.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got3.dtype == torch.bfloat16
+    assert got3.shape == (3, Nv, 3) + st.buf_hw
+    want = m2.composite_mat2_pieces_plain(planar, ml, Nv)
+    assert torch.equal(got3, want) and torch.equal(got1, got3[0])
+    # the plain version on the card is the plain version on the CPU
+    assert torch.equal(want.cpu(), m2.composite_mat2_pieces_plain(
+        planar.cpu(), ml.to("cpu"), Nv))
+    uncovered = (ml.tap_cw == m2.UNCOVERED).reshape(Nv, 1, *st.buf_hw)
+    assert bool((got1[uncovered.expand_as(got1)] == 0).all())
+    with pytest.raises(ValueError):
+        m2.composite_mat2_planar_pieces(planar[0].cpu(), ml, Nv)
+
+
+def test_multiband_on_the_card(dev):
+    """The multiband panorama on the card against the same code on the CPU
+    (the tolerance of tests/test_torch_multiband.py: median 0, <= 1 step on
+    <= 1% of values, none above 2), batched == single bit for bit, and the
+    stitcher goes through the warp kernel."""
+    st, crop = _multiband_state(dev, curved=True)
+    st_cpu = st.to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    planar = torch.randint(-128, 128, (2, 5, 3) + FRAME_HW, dtype=torch.int8,
+                           device=dev, generator=gen)
+    before = m2.PIECES_BATCHED.launches
+    got = mb.multiband_video_frames_batched(planar, st, crop)
+    assert m2.PIECES_BATCHED.launches == before + 1
+    assert got.shape == (2, 3, 104, 1040) and got.dtype == torch.uint8
+    for b in range(2):
+        assert torch.equal(got[b], mb.multiband_video_frame(planar[b], st,
+                                                            crop))
+    want = mb.multiband_video_frames_batched(planar.cpu(), st_cpu, crop)
+    diff = (got.cpu().int() - want.int()).abs()
+    assert float(diff.float().median()) == 0 and int(diff.max()) <= 2
+    assert float((diff > 0).float().mean()) <= 0.01
+    assert int((diff > 1).sum()) == 0
+    # through the stitcher: the default device is the card
+    cfg = StitchConfig()
+    vs = VideoStitcher(cfg.replace(
+        video=dataclasses.replace(cfg.video, compose_mode="multiband")))
+    d = multiband_registration(0, FRAME_HW, step=200, width=260,
+                               canvas_h=128, f_src=150.0)
+    d.pop("frame_hw")
+    reg = Registration.from_state_dict(d)
+    from stitchingvideo_tpu_torch.video.lut import build_lut
+    vs.install_lut(build_lut(reg), FRAME_HW, reg=reg)
+    assert vs._mbtlut is not None and vs._tlut is None
+    frames = list(np.random.default_rng(7).integers(
+        0, 256, (5,) + FRAME_HW + (3,), dtype=np.uint8))
+    before = m2.PIECES_BATCHED.launches
+    pano = vs.composite(frames)
+    assert m2.PIECES_BATCHED.launches == before + 1
+    # the uncropped LUT froze the output at the canvas; the multiband state
+    # carries the runtime's crop margins and sits in its top-left corner
+    assert pano.dtype == np.uint8 and pano.shape == (128, 1088, 3)
+    assert (pano[:104, :1040] > 0).mean() > 0.9
+
+
+@pytest.mark.parametrize("align", (128, 32, 16, 8, 4))
+@pytest.mark.parametrize("hw", ((1088, 1920), (40, 304)), ids=str)
+def test_window_probe_kernel_matches_plain(dev, align, hw):
+    H, W = hw
+    rng = np.random.default_rng(align)
+    frame = torch.from_numpy(rng.integers(-128, 128, (3, H, W),
+                                          dtype=np.int8)).to(dev)
+    n = 300
+    oy = rng.integers(0, H - wp.WIN_H + 1, n)
+    ox = rng.integers(0, (W - wp.WIN_W) // align + 1, n) * align
+    org = torch.from_numpy(np.stack([oy, ox], 1).astype(np.int32)).to(dev)
+    before = wp.WINDOW_PROBE.launches
+    got = wp.window_probe(frame, org, align)
+    torch.cuda.synchronize()
+    assert wp.WINDOW_PROBE.launches == before + 1
+    assert got.shape == (n, 2, 128) and got.dtype == torch.float32
+    assert torch.equal(got, wp.window_probe_plain(frame, org))
+    assert torch.equal(got.cpu(), wp.window_probe(frame.cpu(), org.cpu()))
+
+
+def test_window_probe_refuses_what_it_does_not_take(dev):
+    frame = torch.zeros((3, 64, 512), dtype=torch.int8, device=dev)
+    org = torch.tensor([[0, 0], [40, 0], [0, 260], [0, 130], [8, 128]],
+                       dtype=torch.int32, device=dev)
+    got = wp.window_probe(frame, org, 128)
+    # rows past the frame, columns past the frame, an origin off its
+    # alignment: NaN; the windows inside the frame are summed
+    assert got.isnan().reshape(5, -1).all(dim=1).tolist() == \
+        [False, True, True, True, False]
+    with pytest.raises(ValueError):
+        wp.window_probe(frame, org, 2)                  # no copy that narrow
+    with pytest.raises(ValueError):
+        wp.window_probe(frame, org.cpu(), 128)          # another device
+    with pytest.raises(ValueError):
+        wp.window_probe(frame[:, :, :500], org, 128)    # not contiguous
+    with pytest.raises(ValueError):
+        wp.window_probe(frame.to(torch.uint8), org, 128)

@@ -132,7 +132,11 @@ def test_port_imports_no_jax():
             "stitchingvideo_tpu_torch.ops.composite_mat2",
             "stitchingvideo_tpu_torch.ops.composite_feather",
             "stitchingvideo_tpu_torch.ops.distance",
-            "stitchingvideo_tpu_torch.ops.remap_tiled"]
+            "stitchingvideo_tpu_torch.ops.remap_tiled",
+            "stitchingvideo_tpu_torch.ops.pyramid_planar",
+            "stitchingvideo_tpu_torch.ops.window_probe",
+            "stitchingvideo_tpu_torch.blend.multiband",
+            "stitchingvideo_tpu_torch.blend.multiband_video"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
