@@ -45,7 +45,10 @@ What it does, in phases (any failure exits non-zero):
   In every phase the launch counts are set to 0 before the main path and
   read after it, each kernel's output is held bit-exact against its plain
   PyTorch version on the card (TF32 off), batched output against single
-  output, and the seam-select outputs against the exact gather oracle.
+  output, and the seam-select outputs against the exact gather oracle. The
+  mat2 and feather phases also rebuild their state's staging table (the
+  source boxes their kernels stage into shared memory) from its taps, time
+  it, and print its direct-gather blocks and its bytes a stage.
   10. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
@@ -53,6 +56,12 @@ What it does, in phases (any failure exits non-zero):
 
 Inputs are random, made from --seed; nothing is read from disk but the
 checkout itself and the registration file the script wrote.
+
+    python3 chip_smoke.py --ab DIR   # instead of the phases above
+
+times the mat2 and feather kernels against other versions of their sources
+(one subdirectory of DIR each, e.g. an earlier commit's `csrc/`) in turns on
+the product rigs, each version's output held equal to the checkout's.
 """
 from __future__ import annotations
 
@@ -292,6 +301,35 @@ def mat2_needs(torch, ml, m2) -> dict:
             "kernel_px": n_kern, "fallback_px": n_fb_cov}
 
 
+def staging_of(C, ml, what: str) -> dict:
+    """The staging table of a mat2 or feather state: rebuilt from the
+    state's kernel taps and timed (the part of the state build it costs),
+    checked equal to the state's, and printed with its direct-gather blocks
+    and stage size."""
+    torch = C.torch
+    fields = [ml.fields(s) for s in range(2)] if hasattr(ml, "gw") else \
+        [ml.fields()]
+    taps = []
+    for f in fields:
+        kern = torch.nonzero(f["cam"] >= 0).reshape(-1)
+        taps.append((kern, f["cam"][kern], f["x0"][kern], f["y0"][kern]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, stage_bytes, n_direct = C.staging_table(taps, ml.pano_hw,
+                                                   ml.frame_hw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not torch.equal(table, ml.stage_table) or \
+            (stage_bytes, n_direct) != (ml.stage_bytes, ml.n_direct):
+        fail(f"{what}: the state's staging table is not its taps' table")
+    blocks = table.shape[0]
+    print(f"{what}: staging table of {blocks} blocks built in {build_s:.4f} "
+          f"s; {n_direct} direct-gather blocks; {stage_bytes} bytes a stage",
+          flush=True)
+    return {"build_s": build_s, "blocks": blocks, "direct_blocks": n_direct,
+            "stage_bytes": stage_bytes, "table_bytes": table.numel() * 4}
+
+
 def event_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of fn() over reps calls, by CUDA events."""
     for _ in range(warmup):
@@ -388,6 +426,7 @@ def phase_mat2(C):
           f"{n_kernel_px} kernel px", flush=True)
     if ml.n_fallback == 0:
         fail("the poisoned tiles did not become fallback tiles")
+    staging = staging_of(C, ml, "mat2")
 
     C.reset_counts()
     pano1 = vs.composite(frames)
@@ -440,12 +479,13 @@ def phase_mat2(C):
 
     def mat2_bound(B):
         # each input byte the function needs read once, each output written
-        # once: the frame sectors the taps touch, B times; the LUT as read;
-        # B*3 output planes. ~14 operations a pixel, channel and frame set
-        # on the integer path (4 int multiplies, 3 adds, convert, 3 float
-        # ops, round, 2 clamps), ~16 on the float path of a fallback pixel
+        # once: the frame sectors the taps touch, B times; the LUT as read
+        # and the staging table; B*3 output planes. ~14 operations a pixel,
+        # channel and frame set on the integer path (4 int multiplies, 3
+        # adds, convert, 3 float ops, round, 2 clamps), ~16 on the float
+        # path of a fallback pixel
         return bound(B * need["frame_bytes"] + need["lut_bytes"]
-                     + B * 3 * npix,
+                     + staging["table_bytes"] + B * 3 * npix,
                      B * 3 * (14 * need["kernel_px"]
                               + 16 * need["fallback_px"]))
 
@@ -464,7 +504,8 @@ def phase_mat2(C):
                      reps=2, warmup=1),
             *mat2_bound(B),
             # no one PyTorch call computes the integer-weight gather
-            library_ms=None, batch=B))
+            library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
+            stage_bytes=staging["stage_bytes"]))
     ms32 = event_ms(torch,
                     lambda: m2.composite_mat2_planar_batched(planar32, ml),
                     reps=5, warmup=1)
@@ -504,7 +545,7 @@ def phase_mat2(C):
         "b1_latency_device": latency(
             torch, lambda: vs.composite_planar(frames_d), 20),
         "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32": mat2_bound(32)[0],
-        "mat2_needs": need, "install_lut_s": install_s,
+        "mat2_needs": need, "install_lut_s": install_s, "staging": staging,
     }
     print("mat2: kernel outputs bit-exact against plain versions, batched "
           "== single; shift_planar_bn bit-exact", flush=True)
@@ -760,6 +801,7 @@ def phase_feather(C):
           f"({fb_share:.6f} of the pixels)", flush=True)
     if two_slot == 0 or fb_share == 0:
         fail("the feather rig has no two-slot pixels or no fallback tiles")
+    staging = staging_of(C, ml, "feather")
 
     C.reset_counts()
     pano1 = vs.composite(frames)
@@ -808,8 +850,10 @@ def phase_feather(C):
 
     def feather_bound(B):
         # a live slot ~12 operations a channel and frame set, a pixel's tail
-        # 4; a fallback pixel's live slot ~14
-        return bound(B * frame_bytes + state_bytes + B * 3 * npix,
+        # 4; a fallback pixel's live slot ~14. The state as read and the
+        # staging table
+        return bound(B * frame_bytes + state_bytes + staging["table_bytes"]
+                     + B * 3 * npix,
                      B * 3 * (12 * sum(n_live) + 4 * npix + 14 * n_fb_live))
 
     rows = []
@@ -826,7 +870,8 @@ def phase_feather(C):
                      reps=2, warmup=1),
             *feather_bound(B),
             # no one PyTorch call computes the dual integer-weight gather
-            library_ms=None, batch=B))
+            library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
+            stage_bytes=staging["stage_bytes"]))
     ms16 = event_ms(torch, lambda: vs.composite_microbatch(planar16), reps=10,
                     warmup=2)
     metrics = {
@@ -836,7 +881,7 @@ def phase_feather(C):
             torch, lambda: vs.composite_feather_planar(frames_d), 20),
         "build_feather_state_s": build_s, "load_registration_s": load_s,
         "two_slot_share": two_slot, "fallback_share": fb_share,
-        "fallback_tiles": ml.n_fallback,
+        "fallback_tiles": ml.n_fallback, "staging": staging,
         "needs": {"frame_bytes": frame_bytes, "state_bytes": state_bytes,
                   "live_slot_px": n_live, "fallback_px": n_fb},
     }
@@ -1110,9 +1155,89 @@ def phase_probe(C):
     return rows, metrics
 
 
+# -- the staged kernels against other sources of theirs ----------------------
+
+def phase_ab(C, ab_dir: str):
+    """The mat2 and feather kernels of the checkout against other versions
+    of their sources, on the same inputs of the product rigs: each
+    subdirectory of `ab_dir` may hold a `composite_mat2.cu` and a
+    `composite_feather.cu` (with the headers they include), with the
+    checkout's launch signature or the earlier one-thread-a-pixel one (...,
+    out, B, N, H, W, npix, stream). Every version's output is held equal to
+    the checkout's bit for bit; then all are timed by CUDA events in turns,
+    forward and back (a, b, ..., b, a)."""
+    from pathlib import Path
+    torch, m2, fe, _cuda = C.torch, C.m2, C.fe, C.cuda
+    P_, I_, L_ = _cuda._P, _cuda._I, _cuda._L
+    libs = {"composite_mat2": [], "composite_feather": []}
+    for d in sorted(p for p in Path(ab_dir).resolve().iterdir()
+                    if p.is_dir()):
+        for stem, found in libs.items():
+            src = d / f"{stem}.cu"
+            if not src.exists():
+                continue
+            staged = "stage_bytes" in src.read_text()
+            lib = _cuda.KernelLibrary(stem, [P_] * 10 + [I_] * 7 + [P_]
+                                      if staged else
+                                      [P_] * 9 + [I_] * 4 + [L_, P_])
+            lib.source = src
+            found.append((d.name, staged, lib))
+    build_s = _cuda.build_all([lib for found in libs.values()
+                               for _, _, lib in found])
+    lut = C.CompositeLUT(*(torch.from_numpy(a).to(C.dev)
+                           for a in synthetic_lut(C.seed, poison=True)))
+    mat2 = m2.build_mat2_lut(lut, FRAME_HW)
+    vs = C.VideoStitcher(video_cfg(C, compose_mode="feather"))
+    save_and_load(vs, feather_registration(C.seed))
+    fml = vs._ftlut[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"build_s": build_s, "cases": []}
+    for stem, ml, new_fn, Bs in (
+            ("composite_mat2", mat2, m2.composite_mat2_planar_batched,
+             (1, 16, 32)),
+            ("composite_feather", fml, fe.composite_feather_planar_batched,
+             (1, 16))):
+        state = (ml.tap_xy, ml.tap_cw, ml.gc, ml.fb_cam, ml.fb_sx, ml.fb_sy,
+                 ml.fb_gain) if stem == "composite_mat2" else \
+            (ml.tap_xy, ml.tap_cw, ml.gw, ml.fb_cam, ml.fb_sx, ml.fb_sy,
+             ml.fb_gw)
+        Hp, Wp = ml.pano_hw
+        for B in Bs:
+            planar = C.planar32[:B]
+
+            def version(lib, staged, dst):
+                head = (planar,) + state + ((ml.stage_table,) if staged
+                                            else ()) + (dst,)
+                tail = (Hp, Wp, ml.stage_bytes) if staged else (Hp * Wp,)
+                return lambda: (lib(*(t.data_ptr() for t in head), B, N_CAMS,
+                                    *FRAME_HW, *tail, stream), dst)[1]
+
+            fns = [("checkout", lambda: new_fn(planar, ml))]
+            for name, staged, lib in libs[stem]:
+                fns.append((name, version(lib, staged, torch.empty(
+                    (B, 3, Hp, Wp), dtype=torch.uint8, device=C.dev))))
+            want = fns[0][1]()
+            for name, fn in fns[1:]:
+                if not torch.equal(fn(), want):
+                    fail(f"{stem} at B={B}: {name} differs from the checkout")
+            times = {name: [] for name, _ in fns}
+            for name, fn in fns + fns[::-1]:
+                times[name].append(event_ms(torch, fn, reps=20, warmup=2))
+            case = {"kernel": stem, "batch": B, "ms": times}
+            out["cases"].append(case)
+            print(f"ab {stem} B={B}: " + "; ".join(
+                f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in
+                times.items()) + " ms", flush=True)
+    return [], out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="DIR", default="",
+                    help="instead of the phases, hold the mat2 and feather "
+                         "kernels against the versions of their sources in "
+                         "the subdirectories of DIR and time all in turns")
     args = ap.parse_args()
 
     try:
@@ -1131,6 +1256,7 @@ def main() -> None:
         from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
         from stitchingvideo_tpu_torch.ops import window_probe as wp
         from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
+        from stitchingvideo_tpu_torch.ops.staging import staging_table
         from stitchingvideo_tpu_torch.video.lut import (CompositeLUT,
                                                         composite_frame_u8)
     except ImportError as e:
@@ -1172,7 +1298,7 @@ def main() -> None:
         CompositeLUT=CompositeLUT, composite_frame_u8=composite_frame_u8,
         frames_to_planar_i8=mat.frames_to_planar_i8,
         planar_to_hwc=mat.planar_to_hwc, remap_tiled=remap_tiled,
-        reset_counts=reset_counts,
+        reset_counts=reset_counts, staging_table=staging_table, cuda=_cuda,
         read_counts=lambda: {k.name: k.launches for k in kernels},
         frames=frames, frames_d=torch.from_numpy(np.stack(frames)).to(dev),
         planar32=torch.randint(-128, 128, (32, N_CAMS, 3) + FRAME_HW,
@@ -1183,10 +1309,12 @@ def main() -> None:
 
     # -- 4-9. the paths ------------------------------------------------
     rows, metrics = [], {"card": card, "kind": kind, "build_s": build_s}
-    for name, phase in (("mat2", phase_mat2), ("mat", phase_mat),
-                        ("tiled", phase_tiled), ("feather", phase_feather),
-                        ("multiband", phase_multiband),
-                        ("window_probe", phase_probe)):
+    phases = (("mat2", phase_mat2), ("mat", phase_mat),
+              ("tiled", phase_tiled), ("feather", phase_feather),
+              ("multiband", phase_multiband), ("window_probe", phase_probe))
+    if args.ab:
+        phases = (("ab", lambda C: phase_ab(C, args.ab)),)
+    for name, phase in phases:
         t0 = time.perf_counter()
         phase_rows, metrics[name] = phase(C)
         rows += phase_rows

@@ -37,13 +37,20 @@
 // Bound on the card: memory bytes. It reads, B times, the 32-byte sectors of
 // the frame set that the live slots' taps touch, once the state (tap_cw of
 // both slots of every pixel; tap_xy and gw of a live slot; the fb_* entry of
-// a fallback pixel), and writes B*3*Hp*Wp uint8.
-// Design: one thread per output pixel reads its state once and loops over b
-// and the 3 channels, so the state is read once a launch; see the note at the
-// kernel on registers. The fallback path is out of line and holds nothing
-// across its loops, to keep it off the other pixels' register budget.
+// a fallback pixel) and the staging table, and writes B*3*Hp*Wp uint8.
+// Design: the staged gather of staging.cuh, as K1/K2's. A block of 32x32
+// pixels stages the boxes of both cameras its pixels tap (the staging table
+// of ops/staging.py) into shared memory with 16-byte cp.async, a frame set
+// a stage in a ring of two, and gathers every live slot's taps there; a
+// thread owns 4 pixels of a row, 8 apart, reads their state once and stores
+// 4 adjacent pixels as a 32-bit word a plane. Blocks whose boxes do not fit
+// take a direct gather from device memory, out of line; so does the
+// fallback path, which holds nothing across its loops, to keep it off the
+// other pixels' register budget.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -154,27 +161,20 @@ __device__ __forceinline__ float slot_value(const IntTaps& t,
   return __fmul_rn(__fmul_rn(__int2float_rn(sum), kInv), t.gw);
 }
 
-// Registers decide this kernel's speed: it waits on gathers, so it needs
-// many threads in flight. With both slots in one loop nest over (b, c) the
-// compiler hoisted 24 tap addresses and took 127 registers: 0.47 ms at B=1
-// and 3.63 ms at B=16 on the H100 at product size. Split by what is live,
-// the one-slot pixels (90% of the rig's) run the seam-select loop and the
-// two-slot pixels a flat loop that is not unrolled; with the launch bounds
-// holding it to at most 42 registers: 0.15 ms and 1.17 ms (PERF.md,
-// chip_smoke.py).
-__global__ void __launch_bounds__(256, 6)
-composite_feather_kernel(const int8_t* __restrict__ frames,
-                         const int32_t* __restrict__ tap_xy,
-                         const int32_t* __restrict__ tap_cw,
-                         const float* __restrict__ gw,
-                         const int32_t* __restrict__ fb_cam,
-                         const float* __restrict__ fb_sx,
-                         const float* __restrict__ fb_sy,
-                         const float* __restrict__ fb_gw,
-                         uint8_t* __restrict__ out,
-                         int B, int N, int H, int W, long long npix) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
+// One pixel of a block of the direct-gather branch, its taps from device
+// memory: the one-thread-a-pixel kernel that served every block before the
+// staged one. Registers decided its speed: with both slots in one loop nest
+// over (b, c) the compiler hoisted 24 tap addresses and took 127 registers
+// (0.47 ms at B=1 on the H100 at product size); split by what is live,
+// one-slot pixels run the seam-select loop and two-slot pixels a flat loop
+// that is not unrolled (PERF.md).
+__device__ __forceinline__ void direct_pixel(
+    const int8_t* __restrict__ frames, const int32_t* __restrict__ tap_xy,
+    const int32_t* __restrict__ tap_cw, const float* __restrict__ gw,
+    const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
+    const float* __restrict__ fb_sy, const float* __restrict__ fb_gw,
+    uint8_t* __restrict__ out, long long p, int B, int N, int H, int W,
+    long long npix) {
   const int cw0 = tap_cw[p];
   if (cw0 == kFallback) {
     fallback_pixel(frames, tap_xy[p], fb_cam, fb_sx, fb_sy, fb_gw, out, p, B,
@@ -219,22 +219,186 @@ composite_feather_kernel(const int8_t* __restrict__ frames,
   }
 }
 
+// A block of the direct-gather branch. Out of line: these are few blocks,
+// and their code stays off the staged path's registers.
+__device__ __noinline__ void direct_block(
+    const int8_t* __restrict__ frames, const int32_t* __restrict__ tap_xy,
+    const int32_t* __restrict__ tap_cw, const float* __restrict__ gw,
+    const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
+    const float* __restrict__ fb_sy, const float* __restrict__ fb_gw,
+    uint8_t* __restrict__ out, long long p, int n, int B, int N, int H, int W,
+    long long npix) {
+  for (int k = 0; k < n; ++k)
+    direct_pixel(frames, tap_xy, tap_cw, gw, fb_cam, fb_sx, fb_sy, fb_gw,
+                 out, p + k * staged::kLanes, B, N, H, W, npix);
+}
+
+// One live slot in a stage: the offsets of its taps (o00 | o10 << 16), its
+// weights (staged::tap_weights) and gw; a slot that is not live is all 0.
+struct StagedSlot {
+  unsigned o, w;
+  float gw;
+};
+__device__ __forceinline__ StagedSlot staged_slot(int cw, int xy, float gw,
+                                                  const staged::Box& b0,
+                                                  const staged::Box& b1,
+                                                  int H) {
+  if (cw < 0) return StagedSlot{0u, 0u, 0.0f};
+  const int2 o = staged::tap_offsets(cw >> 16, xy & 0xffff, xy >> 16, b0, b1,
+                                     H);
+  return StagedSlot{(unsigned)o.x | (unsigned)o.y << 16,
+                    staged::tap_weights(cw), gw};
+}
+// v * gw of a slot: f32(S) * f32(1/16129) * gw, each product rounded
+__device__ __forceinline__ float staged_value(unsigned st, unsigned o,
+                                              unsigned w, float gw) {
+  const float kInv = (float)(1.0 / 16129.0);   // f32(1 / 127^2)
+  const int sum = staged::tap_sum(st, o & 0xffff, o >> 16, w);
+  return __fmul_rn(__fmul_rn(__int2float_rn(sum), kInv), gw);
+}
+
+// frame sets in the ring of K4's stages: one in flight while one is
+// computed (with the second slots, a third would cost a block of the SM's
+// six on the product rig)
+constexpr int kSets = 2;
+
+// K4: the staged composite. Per thread, for its 4 pixels, held in
+// registers over the B*3 planes: the first live slot (slot 0 if live, else
+// slot 1) and the restore term 128 * (gw0 + gw1). The second slot of a
+// pixel with both live (10.5% of the product rig's pixels) waits in shared
+// memory, read a word at a time by a thread that has such a pixel. Per
+// plane and pixel:
+//   acc = 0 + v_first * gw_first; acc = acc + v_second * gw_second;
+//   out = clamp(rint(acc + restore)),
+// which is the kernel's order: a slot that is not live has weight 0 and adds
+// a zero, which leaves acc as it is. A fallback pixel gets all-zero slots
+// and is overwritten by the exact float dual gather after the planes.
+__global__ void __launch_bounds__(staged::kThreads, 6)
+composite_feather_kernel(const int8_t* __restrict__ frames,
+                         const int32_t* __restrict__ tap_xy,
+                         const int32_t* __restrict__ tap_cw,
+                         const float* __restrict__ gw,
+                         const int32_t* __restrict__ fb_cam,
+                         const float* __restrict__ fb_sx,
+                         const float* __restrict__ fb_sy,
+                         const float* __restrict__ fb_gw,
+                         const int32_t* __restrict__ table,
+                         uint8_t* __restrict__ out, int B, int N, int H,
+                         int W, int Hp, int Wp, int stage_bytes) {
+  using staged::kPix;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const staged::Pixels px = staged::thread_pixels(Hp, Wp);
+  const long long npix = (long long)Hp * Wp;
+  const int4* slots = reinterpret_cast<const int4*>(table) + 2 * blockIdx.x;
+  const staged::Box b0 = staged::box_of(slots[0]);
+  const staged::Box b1 = staged::box_of(slots[1]);
+  if (b0.cam == staged::kDirect) {
+    direct_block(frames, tap_xy, tap_cw, gw, fb_cam, fb_sx, fb_sy, fb_gw, out,
+                 px.p, px.n, B, N, H, W, npix);
+    return;
+  }
+  const int nplanes = 3 * B;
+  const long long HW = (long long)H * W;
+  const staged::Copies cp = staged::block_copies(b0, b1, H, W);
+
+  // the pixels' state
+  int cw0[kPix], cw1[kPix], xy0[kPix], xy1[kPix];
+  float gw0[kPix], gw1[kPix];
+  staged::load_pixels(tap_cw, px, -1, cw0);
+  staged::load_pixels(tap_cw + npix, px, -1, cw1);
+  staged::load_pixels(tap_xy, px, 0, xy0);
+  staged::load_pixels(tap_xy + npix, px, 0, xy1);
+  staged::load_pixels(gw, px, 0.0f, gw0);
+  staged::load_pixels(gw + npix, px, 0.0f, gw1);
+  StagedSlot first[kPix];
+  float restore[kPix];
+  bool fallback = false, two = false;
+  // the second slots in shared memory, word k of a thread's pixel k at
+  // k * kThreads + threadIdx.x (offsets, weights, gw)
+  unsigned* sec_o = reinterpret_cast<unsigned*>(smem + kSets * 3 *
+                                                stage_bytes);
+  unsigned* sec_w = sec_o + kPix * staged::kThreads;
+  float* sec_g = reinterpret_cast<float*>(sec_w + kPix * staged::kThreads);
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    fallback |= cw0[k] == kFallback;
+    const bool both = cw0[k] >= 0 && cw1[k] >= 0;
+    two |= both;
+    first[k] = cw0[k] >= 0 ? staged_slot(cw0[k], xy0[k], gw0[k], b0, b1, H)
+                           : staged_slot(cw1[k], xy1[k], gw1[k], b0, b1, H);
+    const StagedSlot second = both ? staged_slot(cw1[k], xy1[k], gw1[k], b0,
+                                                 b1, H)
+                                   : StagedSlot{0u, 0u, 0.0f};
+    const int at = k * staged::kThreads + threadIdx.x;
+    sec_o[at] = second.o;
+    sec_w[at] = second.w;
+    sec_g[at] = second.gw;
+    restore[k] = __fmul_rn(128.0f, __fadd_rn(gw0[k], gw1[k]));
+  }
+
+  if (cp.n == 0) {
+    // no live slot in the block: nothing to stage
+    for (int i = 0; i < nplanes; ++i)
+      staged::store_plane(out + i * npix, px, 0u);
+  } else {
+    staged::run_sets<kSets>(smem, stage_bytes, cp, frames, B, N, HW,
+                            [&](unsigned st, int b) {
+      uint8_t* dst = out + 3 * b * npix;
+#pragma unroll
+      for (int c = 0; c < 3; ++c, st += stage_bytes, dst += npix) {
+        float acc[kPix];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          acc[k] = __fadd_rn(0.0f, staged_value(st, first[k].o, first[k].w,
+                                                first[k].gw));
+        if (two) {
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            const int at = k * staged::kThreads + threadIdx.x;
+            acc[k] = __fadd_rn(acc[k], staged_value(st, sec_o[at], sec_w[at],
+                                                    sec_g[at]));
+          }
+        }
+        int q[kPix];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          q[k] = staged::rounded(__fadd_rn(acc[k], restore[k]));
+        staged::store_plane(dst, px, staged::pack4(q[0], q[1], q[2], q[3]));
+      }
+    });
+  }
+  if (fallback)
+    for (int k = 0; k < px.n; ++k) {
+      const long long p = px.p + k * staged::kLanes;
+      if (tap_cw[p] == kFallback)
+        fallback_pixel(frames, tap_xy[p], fb_cam, fb_sx, fb_sy, fb_gw, out, p,
+                       B, N, H, W, npix);
+    }
+}
+
 }  // namespace
 
 extern "C" int composite_feather_launch(
     const void* frames, const void* tap_xy, const void* tap_cw,
     const void* gw, const void* fb_cam, const void* fb_sx, const void* fb_sy,
-    const void* fb_gw, void* out, int B, int N, int H, int W, long long npix,
-    void* stream) {
-  if (npix <= 0 || B <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (npix + threads - 1) / threads;
-  composite_feather_kernel<<<(unsigned)blocks, threads, 0,
+    const void* fb_gw, const void* table, void* out, int B, int N, int H,
+    int W, int Hp, int Wp, int stage_bytes, void* stream) {
+  using namespace staged;
+  if (Hp <= 0 || Wp <= 0 || B <= 0) return 0;
+  if (stage_bytes < 16 || stage_bytes % 16 || stage_bytes > kBudget + 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)((Hp + kBlockH - 1) / kBlockH) *
+                           ((Wp + kBlockW - 1) / kBlockW);
+  // the stages, then the second slots: 3 words of 4 pixels a thread
+  const int smem = kSets * 3 * stage_bytes + 3 * 4 * kPix * kThreads;
+  const int e = shared_above_default(composite_feather_kernel, smem);
+  if (e) return e;
+  composite_feather_kernel<<<(unsigned)blocks, kThreads, smem,
                              (cudaStream_t)stream>>>(
       (const int8_t*)frames, (const int32_t*)tap_xy, (const int32_t*)tap_cw,
       (const float*)gw, (const int32_t*)fb_cam, (const float*)fb_sx,
-      (const float*)fb_sy, (const float*)fb_gw, (uint8_t*)out, B, N, H, W,
-      npix);
+      (const float*)fb_sy, (const float*)fb_gw, (const int32_t*)table,
+      (uint8_t*)out, B, N, H, W, Hp, Wp, stage_bytes);
   return (int)cudaGetLastError();
 }
 

@@ -31,17 +31,26 @@
 // Bound on the card: memory bytes. It reads, B times, the parts of the frame
 // set (N*3*H*W int8) that its taps touch (not the outer columns a rig's LUT
 // never samples), and once the LUT (tap_cw of every pixel, tap_xy and gc of
-// a covered one; a fallback pixel's fb_* entry instead), and writes
-// B*3*Hp*Wp uint8; it does about 12 integer and float operations a byte of
-// output. chip_smoke.py's mat2_needs counts these bytes for a given LUT.
-// Design: deliberately simple, one thread per output pixel, which reads its
-// LUT entry once and loops over b and the 3 channels; neighbouring threads
-// gather neighbouring source pixels, so the taps' loads mostly coalesce and
-// the 2x2 reuse is served by L1/L2. cp.async/TMA staging of source rows and
-// wider stores come in later changes.
+// a covered one; a fallback pixel's fb_* entry instead) and the staging
+// table, and writes B*3*Hp*Wp uint8; it does about 12 integer and float
+// operations a byte of output. chip_smoke.py's mat2_needs counts these bytes
+// for a given LUT.
+// Design of K1/K2 (composite_mat2_kernel): a gather with one thread a pixel
+// issues a memory request for each of its 4 one-byte taps and its one-byte
+// store, and is bound by those requests and their latency, not by bytes. So
+// a block of 32x32 pixels stages the source boxes its pixels tap into shared
+// memory with 16-byte cp.async, a frame set (3 planes) a stage in a ring of
+// three (staging.cuh, the table from ops/staging.py), and gathers the taps
+// there; a thread owns 4 pixels of a row, 8 apart, so that a warp's shared
+// loads fall into few words, and stores 4 adjacent pixels as a 32-bit word
+// a plane after a transpose across its row's lanes. Blocks whose boxes do
+// not fit a stage take a direct gather from device memory (mat2_pixel, out
+// of line). K5 and the pieces kernel keep the one-thread-a-pixel gather.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -173,21 +182,112 @@ __device__ __forceinline__ void mat2_pixel(
   integer_pixel(frames, cw, tap_xy[p], gc[p], store, B, N, H, W);
 }
 
-__global__ void composite_mat2_kernel(const int8_t* __restrict__ frames,
-                                      const int32_t* __restrict__ tap_xy,
-                                      const int32_t* __restrict__ tap_cw,
-                                      const float* __restrict__ gc,
-                                      const int32_t* __restrict__ fb_cam,
-                                      const float* __restrict__ fb_sx,
-                                      const float* __restrict__ fb_sy,
-                                      const float* __restrict__ fb_gain,
-                                      uint8_t* __restrict__ out,
-                                      int B, int N, int H, int W,
-                                      long long npix) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  mat2_pixel(frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, p,
-             PanoU8{out + p, npix}, B, N, H, W);
+// A block of the direct-gather branch: each thread's pixels one by one,
+// their taps from device memory. Out of line, as the fallback path: these
+// are few blocks, and their code stays off the staged path's registers.
+__device__ __noinline__ void direct_block(
+    const int8_t* __restrict__ frames, const int32_t* __restrict__ tap_xy,
+    const int32_t* __restrict__ tap_cw, const float* __restrict__ gc,
+    const int32_t* __restrict__ fb_cam, const float* __restrict__ fb_sx,
+    const float* __restrict__ fb_sy, const float* __restrict__ fb_gain,
+    uint8_t* __restrict__ out, long long p, int n, int B, int N, int H, int W,
+    long long npix) {
+  for (int k = 0; k < n; ++k) {
+    const long long q = p + k * staged::kLanes;
+    mat2_pixel(frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, q,
+               PanoU8{out + q, npix}, B, N, H, W);
+  }
+}
+
+// frame sets in the ring of K1/K2's stages: two in flight while one is
+// computed
+constexpr int kSets = 3;
+
+// K1/K2: the staged composite (staging.cuh). Per thread, for its 4 pixels:
+// the offsets of their taps in a stage, their four weights in one word and
+// their gain, held in registers over the B*3 planes; per plane 16 one-byte
+// shared-memory loads, the float tail, and one 32-bit store. An uncovered
+// or fallback pixel gets weights 0 and gain 0 (value (0 + 128) * 0 = 0); a
+// fallback pixel is then overwritten by the exact float gather after the
+// planes.
+__global__ void __launch_bounds__(staged::kThreads, 6)
+composite_mat2_kernel(const int8_t* __restrict__ frames,
+                      const int32_t* __restrict__ tap_xy,
+                      const int32_t* __restrict__ tap_cw,
+                      const float* __restrict__ gc,
+                      const int32_t* __restrict__ fb_cam,
+                      const float* __restrict__ fb_sx,
+                      const float* __restrict__ fb_sy,
+                      const float* __restrict__ fb_gain,
+                      const int32_t* __restrict__ table,
+                      uint8_t* __restrict__ out, int B, int N, int H, int W,
+                      int Hp, int Wp, int stage_bytes) {
+  using namespace staged;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const float kInv = (float)(1.0 / 16129.0);   // f32(1 / 127^2)
+  const Pixels px = thread_pixels(Hp, Wp);
+  const long long npix = (long long)Hp * Wp;
+  const int4* slots = reinterpret_cast<const int4*>(table) + 2 * blockIdx.x;
+  const Box b0 = box_of(slots[0]), b1 = box_of(slots[1]);
+  if (b0.cam == kDirect) {
+    direct_block(frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain,
+                 out, px.p, px.n, B, N, H, W, npix);
+    return;
+  }
+  const int nplanes = 3 * B;
+  const long long HW = (long long)H * W;
+  const Copies cp = block_copies(b0, b1, H, W);
+
+  // the pixels' state
+  int cw[kPix], xy[kPix];
+  float gk[kPix];
+  load_pixels(tap_cw, px, -1, cw);
+  load_pixels(tap_xy, px, 0, xy);
+  load_pixels(gc, px, 0.0f, gk);
+  int o00[kPix], o10[kPix];
+  unsigned w[kPix];
+  float g[kPix];
+  bool fallback = false;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    fallback |= cw[k] == kFallback;
+    const bool kern = cw[k] >= 0;
+    const int2 o = kern ? tap_offsets(cw[k] >> 16, xy[k] & 0xffff,
+                                      xy[k] >> 16, b0, b1, H)
+                        : make_int2(0, 0);
+    o00[k] = o.x;
+    o10[k] = o.y;
+    w[k] = kern ? tap_weights(cw[k]) : 0u;
+    g[k] = kern ? gk[k] : 0.0f;
+  }
+
+  if (cp.n == 0) {
+    // no kernel pixel in the block: nothing to stage
+    for (int i = 0; i < nplanes; ++i) store_plane(out + i * npix, px, 0u);
+  } else {
+    run_sets<kSets>(smem, stage_bytes, cp, frames, B, N, HW,
+                    [&](unsigned st, int b) {
+      uint8_t* dst = out + 3 * b * npix;
+#pragma unroll
+      for (int c = 0; c < 3; ++c, st += stage_bytes, dst += npix) {
+        int q[kPix];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const int sum = tap_sum(st, o00[k], o10[k], w[k]);
+          const float v = __fmul_rn(__int2float_rn(sum), kInv);
+          q[k] = rounded(__fmul_rn(__fadd_rn(v, 128.0f), g[k]));
+        }
+        store_plane(dst, px, pack4(q[0], q[1], q[2], q[3]));
+      }
+    });
+  }
+  if (fallback)
+    for (int k = 0; k < px.n; ++k) {
+      const long long p = px.p + k * kLanes;
+      if (tap_cw[p] == kFallback)
+        fallback_pixel(frames, tap_xy[p], fb_cam, fb_sx, fb_sy, fb_gain,
+                       PanoU8{out + p, npix}, B, N, H, W);
+    }
 }
 
 // The pieces variant of K1/K2, the warp stage of the multiband video mode
@@ -257,17 +357,24 @@ extern "C" int composite_mat2_launch(const void* frames, const void* tap_xy,
                                      const void* tap_cw, const void* gc,
                                      const void* fb_cam, const void* fb_sx,
                                      const void* fb_sy, const void* fb_gain,
-                                     void* out, int B, int N, int H, int W,
-                                     long long npix, void* stream) {
-  if (npix <= 0 || B <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (npix + threads - 1) / threads;
-  composite_mat2_kernel<<<(unsigned)blocks, threads, 0,
+                                     const void* table, void* out, int B,
+                                     int N, int H, int W, int Hp, int Wp,
+                                     int stage_bytes, void* stream) {
+  using namespace staged;
+  if (Hp <= 0 || Wp <= 0 || B <= 0) return 0;
+  if (stage_bytes < 16 || stage_bytes % 16 || stage_bytes > kBudget + 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)((Hp + kBlockH - 1) / kBlockH) *
+                           ((Wp + kBlockW - 1) / kBlockW);
+  const int smem = kSets * 3 * stage_bytes;
+  const int e = shared_above_default(composite_mat2_kernel, smem);
+  if (e) return e;
+  composite_mat2_kernel<<<(unsigned)blocks, kThreads, smem,
                           (cudaStream_t)stream>>>(
       (const int8_t*)frames, (const int32_t*)tap_xy, (const int32_t*)tap_cw,
       (const float*)gc, (const int32_t*)fb_cam, (const float*)fb_sx,
-      (const float*)fb_sy, (const float*)fb_gain, (uint8_t*)out, B, N, H, W,
-      npix);
+      (const float*)fb_sy, (const float*)fb_gain, (const int32_t*)table,
+      (uint8_t*)out, B, N, H, W, Hp, Wp, stage_bytes);
   return (int)cudaGetLastError();
 }
 

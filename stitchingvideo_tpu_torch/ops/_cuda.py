@@ -7,8 +7,9 @@ behind a plain C launch function (`<stem>_launch`, returning the
 device functions, behind a launch function of its own (`<entry>_launch`). A
 source is compiled for Hopper
 (`sm_90a`) on first use, into `_build/` beside the package, under a name
-that hashes the source and the flags, so an edited source is rebuilt and
-concurrent processes never load a half-written library. Nothing here runs
+that hashes the source, the headers it includes from `csrc/` and the flags,
+so an edited source or header is rebuilt and concurrent processes never load
+a half-written library. Nothing here runs
 when the module is imported: a machine without nvcc or a GPU imports it.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -54,7 +56,9 @@ class KernelLibrary:
 
     @property
     def path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for f in local_includes(self.source):
+            h.update(f.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.stem}-{h.hexdigest()[:16]}.so"
 
@@ -90,6 +94,21 @@ class KernelLibrary:
         if rc != 0:
             raise RuntimeError(f"{self.entry}: CUDA error {rc}: "
                                f"{self._err(rc).decode()}")
+
+
+def local_includes(source: Path) -> list:
+    """`source` and every file it includes with `#include "..."` from its
+    own directory, headers of headers too, each once, in the order met."""
+    seen, todo = [], [source]
+    while todo:
+        f = todo.pop(0)
+        if f in seen or not f.exists():
+            continue
+        seen.append(f)
+        todo += [f.parent / name for name in
+                 re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read_text(),
+                            re.MULTILINE)]
+    return seen
 
 
 def build_all(libraries: Sequence[KernelLibrary]) -> float:
@@ -128,10 +147,9 @@ class CudaKernel:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, out,
-# B, N, H, W, npix, stream
-COMPOSITE_MAT2 = KernelLibrary("composite_mat2", [_P] * 9 +
-                               [_I, _I, _I, _I, _L, _P])
+# frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, stage table,
+# out, B, N, H, W, Hp, Wp, stage bytes, stream
+COMPOSITE_MAT2 = KernelLibrary("composite_mat2", [_P] * 10 + [_I] * 7 + [_P])
 # src, dst, B, N, rows (= 3*H), W, stream
 SHIFT_PLANAR_BN = KernelLibrary("shift_planar_bn",
                                 [_P, _P, _I, _I, _I, _I, _P])
@@ -148,9 +166,9 @@ COMPOSITE_MAT2_PIECES = KernelLibrary("composite_mat2", [_P] * 9 +
 # frames, sx, sy, gain, cidx, out, N, H, W, ntx, T, Hp, Wp, stream
 COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])
 # frames, tap_xy, tap_cw, gw (each [2, npix]), fb_cam, fb_sx, fb_sy, fb_gw
-# (each [F, 2]), out, B, N, H, W, npix, stream
-COMPOSITE_FEATHER = KernelLibrary("composite_feather", [_P] * 9 +
-                                  [_I, _I, _I, _I, _L, _P])
+# (each [F, 2]), stage table, out, B, N, H, W, Hp, Wp, stage bytes, stream
+COMPOSITE_FEATHER = KernelLibrary("composite_feather",
+                                  [_P] * 10 + [_I] * 7 + [_P])
 # frame, origins, out, nwin, H, W, bytes a copy, blocks, stream
 WINDOW_PROBE = KernelLibrary("window_probe", [_P] * 3 + [_I] * 5 + [_P])
 LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN, COMPOSITE_MAT,

@@ -16,10 +16,12 @@ window, because it decides which pixels take which path and with which
 weights, and stores per pixel and slot the hat matrices' two non-zeros an
 axis in global frame coordinates: tap origin, camera and integer weights,
 and the float weight `gw`, 24 bytes a pixel. Its kernel
-(`csrc/composite_feather.cu`) gathers four taps a live slot; the band offset
-is folded into the tap address, so it reads the frames as they are, with no
-shifted copies. A slot that is not live for a pixel (`gw == 0`) is skipped:
-the reference multiplies a finite value by 0 there.
+(`csrc/composite_feather.cu`) gathers four taps a live slot from the source
+boxes that each block of 32x32 pixels stages into shared memory (the staging
+table, `ops/staging.py`, with a box for each camera of the block); the band
+offset is folded into the tap address, so it reads the frames as they are,
+with no shifted copies. A slot that is not live for a pixel (`gw == 0`)
+adds nothing: the reference multiplies a finite value by 0 there.
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ from .composite import (P, TILE_H, TILE_W, VXW, WIN_H, WIN_W, tile, untile,
                         window)
 from .composite_mat import window_taps
 from .composite_mat2 import (FALLBACK, UNCOVERED, bilinear_taps, check_frames,
-                             check_packable, int_tap_values, pack_taps, to_u8,
-                             unpack_taps)
+                             check_packable, check_staged, int_tap_values,
+                             pack_taps, to_u8, unpack_taps)
 from .distance import distance_transform_l1
+from .staging import staging_table
 
 # launch counters of the kernel's two entry points
 FEATHER_SINGLE = _cuda.CudaKernel("composite_feather_planar",
@@ -155,6 +158,10 @@ class FeatherMatLUT:
     fb_sx, fb_sy, fb_gw: [F, 2] f32  their clipped source coords and weights
     tile_cam [T*2], tile_org [T*4], tile_band [T*2] int32, fallback [T] bool:
         the reference's per-tile window metadata (`_materialize_feather`)
+    stage_table: [blocks, 2, 4] int32  the kernel's staging table
+        (`ops/staging.py`), over the live slots of both slots; the plain
+        version does not read it
+    stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
     tap_cw: torch.Tensor
@@ -173,6 +180,9 @@ class FeatherMatLUT:
     grid_hw: Tuple[int, int]
     pano_hw: Tuple[int, int]
     frame_hw: Tuple[int, int]
+    stage_table: torch.Tensor
+    stage_bytes: int
+    n_direct: int
 
     @property
     def device(self) -> torch.device:
@@ -270,6 +280,12 @@ def build_feather_mat(blut: BlendLUT, frame_hw: Tuple[int, int]
     i32 = torch.int32
     n_cams = int(max(blut.cam_a.max(), blut.cam_b.max())) + 1 \
         if fb.numel() else 0
+    taps = []
+    for s in range(2):
+        live = torch.nonzero(cw[s] >= 0).reshape(-1)
+        taps.append((live, cw[s][live] >> 16, xy[s][live] & 0xFFFF,
+                     xy[s][live] >> 16))
+    table, stage_bytes, n_direct = staging_table(taps, pano_hw, (fh, fw))
     return FeatherMatLUT(
         tap_xy=torch.stack(xy).contiguous(),
         tap_cw=torch.stack(cw).contiguous(),
@@ -282,7 +298,8 @@ def build_feather_mat(blut: BlendLUT, frame_hw: Tuple[int, int]
         tile_org=torch.stack(orgs, dim=1).to(i32).reshape(-1),
         tile_band=torch.stack(bands, dim=1).to(i32).reshape(-1),
         fallback=fallback, n_fallback=int(fallback.sum()), n_cams=n_cams,
-        grid_hw=grid, pano_hw=pano_hw, frame_hw=(fh, fw))
+        grid_hw=grid, pano_hw=pano_hw, frame_hw=(fh, fw), stage_table=table,
+        stage_bytes=stage_bytes, n_direct=n_direct)
 
 
 def _fb_blend_values(planar_b: torch.Tensor, ml: FeatherMatLUT) -> torch.Tensor:
@@ -345,14 +362,15 @@ def _composite(planar_b: torch.Tensor, ml: FeatherMatLUT,
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
+    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gw), ml.stage_table)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp, Wp), dtype=torch.uint8,
                       device=planar_b.device)
     kernel.launch(*(t.data_ptr() for t in (
                       planar_b, ml.tap_xy, ml.tap_cw, ml.gw, ml.fb_cam,
-                      ml.fb_sx, ml.fb_sy, ml.fb_gw, out)),
-                  B, N, H, W, Hp * Wp,
+                      ml.fb_sx, ml.fb_sy, ml.fb_gw, ml.stage_table, out)),
+                  B, N, H, W, Hp, Wp, ml.stage_bytes,
                   torch.cuda.current_stream(planar_b.device).cuda_stream)
     return out
 

@@ -16,9 +16,11 @@ matrices' two non-zeros per axis are, in global frame coordinates:
 with weight `a` on tap x0 and `127 - a` on tap x0 + 1 (the same for y; a tap
 on the window's last row/column, `fx == 0`, gets 127). The port stores these
 per pixel, row-major on the panorama (12 bytes a pixel), and its kernel
-gathers the four taps directly (`csrc/composite_mat2.cu`). Pixels of
-fallback tiles keep the reference's exact float gather (`_fallback_values`),
-in the same kernel on the card and in `_overlay_fallback` on the CPU.
+(`csrc/composite_mat2.cu`) gathers the four taps from source boxes that each
+block of 32x32 pixels stages into shared memory, as the state's staging
+table (`ops/staging.py`) sets out. Pixels of fallback tiles keep the
+reference's exact float gather (`_fallback_values`), in the same kernel on
+the card and in `_overlay_fallback` on the CPU.
 
 `tests/test_torch_composite.py` holds all of this bit-exact against the JAX
 package.
@@ -34,6 +36,7 @@ import torch
 from . import _cuda
 from .composite import (BAND_STEP, P, VXW, WIN_W, TiledLUT, build_tiled_lut,
                         untile)
+from .staging import staging_table
 
 WEIGHT = 127                              # int8 weight scale of one axis
 UNCOVERED, FALLBACK = -1, -2              # tap_cw of pixels off the int path
@@ -66,6 +69,10 @@ class MatLUT2:
     fb_cam:  [F] int32      their camera (-1 = uncovered)
     fb_sx, fb_sy, fb_gain: [F] f32 their clipped source coords and gain
     n_fallback: fallback tiles;  n_cams: highest camera index + 1
+    stage_table: [blocks, 2, 4] int32  the kernel's staging table
+                            (`ops/staging.py`); the plain versions do not
+                            read it
+    stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
     tap_cw: torch.Tensor
@@ -79,6 +86,9 @@ class MatLUT2:
     n_cams: int
     pano_hw: Tuple[int, int]
     frame_hw: Tuple[int, int]
+    stage_table: torch.Tensor
+    stage_bytes: int
+    n_direct: int
 
     @property
     def device(self) -> torch.device:
@@ -148,13 +158,17 @@ def _materialize2(tlut: TiledLUT) -> MatLUT2:
     fb_index = (torch.cumsum(fb, 0, dtype=torch.int32) - 1)
     tap_xy = torch.where(fb, fb_index, tap_xy)
     fb_pix = torch.nonzero(fb).reshape(-1)
+    kern = torch.nonzero(tap_cw >= 0).reshape(-1)
+    table, stage_bytes, n_direct = staging_table(
+        [(kern, cam[kern], x0[kern], y0[kern])], (Hp, Wp), (fh, fw))
     return MatLUT2(
         tap_xy=tap_xy.contiguous(), tap_cw=tap_cw.contiguous(),
         gc=(gain * covered.to(torch.float32)).contiguous(),
         fb_pix=fb_pix, fb_cam=cam[fb_pix], fb_sx=sx[fb_pix],
         fb_sy=sy[fb_pix], fb_gain=gain[fb_pix],
         n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
-        pano_hw=(Hp, Wp), frame_hw=(fh, fw))
+        pano_hw=(Hp, Wp), frame_hw=(fh, fw), stage_table=table,
+        stage_bytes=stage_bytes, n_direct=n_direct)
 
 
 def materialize2_used(tlut: TiledLUT) -> MatLUT2:
@@ -293,6 +307,22 @@ def check_frames(planar_b: torch.Tensor, ml) -> None:
         raise ValueError("frames must be contiguous")
 
 
+def check_staged(planar_b: torch.Tensor, state: Tuple[torch.Tensor, ...],
+                 table: torch.Tensor) -> None:
+    """Raise unless the staged kernels take these frames, state tensors and
+    staging table: all contiguous; the frames (for the 16-byte copies of
+    their rows) and the table (read a slot at a time) 16-byte aligned; one
+    frame set and the panorama indexable in int32."""
+    N, _, H, W = planar_b.shape[1:]
+    if N * 3 * H * W >= 1 << 31 or state[0].shape[-1] >= 1 << 31:
+        raise ValueError(f"a frame set of {N}x3x{H}x{W} or its panorama is "
+                         "too large for int32 offsets")
+    if not all(t.is_contiguous() for t in (planar_b, table) + tuple(state)):
+        raise ValueError("frames and state must be contiguous")
+    if planar_b.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("frames and staging table must be 16-byte aligned")
+
+
 def _composite(planar_b: torch.Tensor, ml: MatLUT2,
                kernel: _cuda.CudaKernel) -> torch.Tensor:
     if planar_b.device.type == "cpu":
@@ -300,14 +330,15 @@ def _composite(planar_b: torch.Tensor, ml: MatLUT2,
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
+    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc), ml.stage_table)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp * Wp), dtype=torch.uint8,
                       device=planar_b.device)
     kernel.launch(*(t.data_ptr() for t in (
                       planar_b, ml.tap_xy, ml.tap_cw, ml.gc, ml.fb_cam,
-                      ml.fb_sx, ml.fb_sy, ml.fb_gain, out)),
-                  B, N, H, W, Hp * Wp,
+                      ml.fb_sx, ml.fb_sy, ml.fb_gain, ml.stage_table, out)),
+                  B, N, H, W, Hp, Wp, ml.stage_bytes,
                   torch.cuda.current_stream(planar_b.device).cuda_stream)
     return out.reshape(B, 3, Hp, Wp)
 

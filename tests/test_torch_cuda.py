@@ -197,11 +197,12 @@ def test_remap_tiled_on_the_card(dev):
                        scrambled.to(dev)) is None
 
 
-def _blend_state(triple_cols=(), N=3, Hp=61, Wp=700, seed=0):
+def _blend_state(triple_cols=(), N=3, Hp=61, Wp=700, seed=0,
+                 frame_hw=FRAME_HW):
     """tests/test_pallas_feather.py's synthetic blend LUT, in numpy: side-
     by-side cameras with ramped overlap bands; `triple_cols` name a third
     camera (fallback tiles); the last columns are uncovered."""
-    fh, fw = FRAME_HW
+    fh, fw = frame_hw
     rng = np.random.default_rng(seed)
     frames = rng.integers(0, 255, (N, fh, fw, 3), np.uint8)
     xx, yy = np.meshgrid(np.arange(Wp, dtype=np.float32),
@@ -416,3 +417,145 @@ def test_window_probe_refuses_what_it_does_not_take(dev):
         wp.window_probe(frame[:, :, :500], org, 128)    # not contiguous
     with pytest.raises(ValueError):
         wp.window_probe(frame.to(torch.uint8), org, 128)
+
+
+# -- the staged mat2 and feather kernels --------------------------------------
+
+def _direct_lut():
+    """`_state`'s map at 256-row frames with, in the first block, a tile row
+    of each of three cameras (8x128 tiles of one camera each, no fallback
+    tile), and blocks right of x = 256 that sample 6 frame rows a panorama
+    row (boxes over the staging budget; their tiles fit their windows): both
+    take the kernel's direct gather."""
+    fh, fw = 256, 512
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 255, (3, fh, fw, 3), np.uint8)
+    ph, pw = 64, 1024
+    xx, yy = np.meshgrid(np.arange(pw, dtype=np.float32),
+                         np.arange(ph, dtype=np.float32))
+    seg = pw // 3
+    cam = np.clip(xx.astype(np.int32) // seg, 0, 2)
+    lx = xx - cam * seg
+    sx = (8 + lx * (fw - 16) / seg + 0.05 * yy).astype(np.float32)
+    sy = (8 + yy * (fh - 16) / ph - 0.01 * lx).astype(np.float32)
+    cam[8:16, :128] = 2
+    cam[16:24, :128] = 1
+    sx[:32, 256:512] = 20 + 1.5 * xx[:32, :256]
+    sy[:32, 256:512] = 4 + 6 * yy[:32, :256]
+    cam[:32, 256:512] = 0
+    valid = (sx > 1) & (sx < fw - 2) & (sy > 1) & (sy < fh - 2)
+    cam = np.where(valid, cam, -1).astype(np.int32)
+    gain = (1.0 + 0.1 * np.sin(xx / 31.0)).astype(np.float32)
+    lut = CompositeLUT(*(torch.from_numpy(a) for a in (cam, sx, sy, gain)))
+    return torch.from_numpy(frames), lut, (fh, fw)
+
+
+def _mat2_case(kind, dev):
+    """(frames [N, H, W, 3], MatLUT2 on the card, frame_hw) of a staged
+    kernel case: 'poisoned' has fallback tiles; 'odd' a 61x1000 panorama
+    (no multiple of the 32x32 block), 'ragged' a 61x998 one (rows of no
+    multiple of 4 pixels: no 16-byte state loads, byte stores); 'direct'
+    blocks of the direct gather."""
+    if kind == "direct":
+        frames, lut, frame_hw = _direct_lut()
+    else:
+        shape = {"poisoned": {}, "odd": ODD,
+                 "ragged": dict(ph=61, pw=998)}[kind]
+        frames, lut = _state("poisoned" if kind == "poisoned" else "rot04",
+                             **shape)
+        frame_hw = FRAME_HW
+    return frames, m2.build_mat2_lut(lut.to(dev), frame_hw), frame_hw
+
+
+@pytest.mark.parametrize("B", (1, 3, 32))
+@pytest.mark.parametrize("kind", ("poisoned", "odd", "ragged", "direct"))
+def test_staged_mat2_kernel_matches_plain(dev, kind, B):
+    frames, ml, frame_hw = _mat2_case(kind, dev)
+    assert (ml.n_fallback > 0) == (kind == "poisoned")
+    assert (ml.n_direct > 0) == (kind == "direct")
+    gen = torch.Generator(device=dev).manual_seed(B)
+    planar = torch.randint(-128, 128, (B, 3, 3) + frame_hw, dtype=torch.int8,
+                           device=dev, generator=gen)
+    planar[0] = frames_to_planar_i8(frames.to(dev))
+    before = m2.MAT2_BATCHED.launches
+    got = m2.composite_mat2_planar_batched(planar, ml)
+    torch.cuda.synchronize()
+    assert m2.MAT2_BATCHED.launches == before + 1
+    assert torch.equal(got, m2.composite_mat2_plain(planar, ml))
+    assert torch.equal(m2.composite_mat2_planar(planar[B - 1], ml),
+                       got[B - 1])
+
+
+def _feather_direct():
+    """A blend LUT on 256-row frames whose first block has tiles of three
+    cameras (rows 8-15 of camera 2 alone, rows 16-23 of camera 1 alone: no
+    fallback tile) and whose blocks in x = 256..511 sample 6 frame rows a
+    panorama row (boxes over the staging budget; their tiles fit their
+    windows)."""
+    frames, blut = _blend_state(Hp=64, Wp=768, frame_hw=(256, 512))
+    for rows, c in ((slice(8, 16), 2), (slice(16, 24), 1)):
+        blut.cam_a[rows, :128] = c
+        blut.cam_b[rows, :128] = -1
+        blut.gw_b[rows, :128] = 0.0
+    yy = torch.arange(32, dtype=torch.float32)[:, None]
+    blut.sy_a[:32, 256:512] = 4 + 6 * yy
+    blut.sy_b[:32, 256:512] = 4 + 6 * yy
+    return frames, blut, (256, 512)
+
+
+@pytest.mark.parametrize("B", (1, 3, 32))
+@pytest.mark.parametrize("kind", ("fallback", "direct"))
+def test_staged_feather_kernel_matches_plain(dev, kind, B):
+    if kind == "direct":
+        frames, blut, frame_hw = _feather_direct()
+    else:
+        (frames, blut), frame_hw = _blend_state((130, 131, 600)), FRAME_HW
+    ml = fe.build_feather_mat(blut.to(dev), frame_hw)
+    assert (ml.n_fallback > 0) == (kind == "fallback")
+    assert (ml.n_direct > 0) == (kind == "direct")
+    live = ml.tap_cw >= 0
+    assert bool((live[0] & live[1]).any())
+    gen = torch.Generator(device=dev).manual_seed(B)
+    planar = torch.randint(-128, 128, (B, 3, 3) + frame_hw, dtype=torch.int8,
+                           device=dev, generator=gen)
+    planar[0] = frames_to_planar_i8(frames.to(dev))
+    before = fe.FEATHER_BATCHED.launches
+    got = fe.composite_feather_planar_batched(planar, ml)
+    torch.cuda.synchronize()
+    assert fe.FEATHER_BATCHED.launches == before + 1
+    assert torch.equal(got, fe.composite_feather_plain(planar, ml))
+    assert torch.equal(fe.composite_feather_planar(planar[B - 1], ml),
+                       got[B - 1])
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_staged_kernels_refuse_misaligned_inputs(dev):
+    frames, ml, _ = _mat2_case("odd", dev)
+    planar = frames_to_planar_i8(frames.to(dev))
+    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            m2.composite_mat2_planar(bad, ml)
+    with pytest.raises(ValueError):
+        m2.composite_mat2_planar(planar, dataclasses.replace(
+            ml, stage_table=_misaligned(ml.stage_table)))
+    with pytest.raises(ValueError):
+        m2.composite_mat2_planar(planar, dataclasses.replace(
+            ml, gc=torch.stack([ml.gc, ml.gc], 1)[:, 0]))   # strided
+    frames, blut = _blend_state()
+    fml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
+    planar = frames_to_planar_i8(frames.to(dev))
+    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            fe.composite_feather_planar(bad, fml)
+    with pytest.raises(ValueError):
+        fe.composite_feather_planar(planar, dataclasses.replace(
+            fml, stage_table=_misaligned(fml.stage_table)))
