@@ -301,11 +301,13 @@ def mat2_needs(torch, ml, m2) -> dict:
             "kernel_px": n_kern, "fallback_px": n_fb_cov}
 
 
-def staging_of(C, ml, what: str) -> dict:
+def staging_of(C, ml, what: str, library) -> dict:
     """The staging table of a mat2 or feather state: rebuilt from the
     state's kernel taps and timed (the part of the state build it costs),
-    checked equal to the state's, and printed with its direct-gather blocks
-    and stage size."""
+    checked equal to the state's, and printed with its direct-gather blocks,
+    stage size and the blocks of the kernel (`library`) an SM holds at that
+    stage size, which must be its launch bounds' 6 at any stage within the
+    staging budget."""
     torch = C.torch
     fields = [ml.fields(s) for s in range(2)] if hasattr(ml, "gw") else \
         [ml.fields()]
@@ -323,11 +325,18 @@ def staging_of(C, ml, what: str) -> dict:
             (stage_bytes, n_direct) != (ml.stage_bytes, ml.n_direct):
         fail(f"{what}: the state's staging table is not its taps' table")
     blocks = table.shape[0]
+    per_sm = library.blocks_per_sm(stage_bytes)
+    per_sm_at_budget = library.blocks_per_sm(C.STAGE_BUDGET + 16)
     print(f"{what}: staging table of {blocks} blocks built in {build_s:.4f} "
-          f"s; {n_direct} direct-gather blocks; {stage_bytes} bytes a stage",
-          flush=True)
+          f"s; {n_direct} direct-gather blocks; {stage_bytes} bytes a stage; "
+          f"{per_sm} blocks an SM ({per_sm_at_budget} at the budget's "
+          f"{C.STAGE_BUDGET + 16} bytes a stage)", flush=True)
+    if per_sm_at_budget < 6:
+        fail(f"{what}: {per_sm_at_budget} blocks an SM at the staging "
+             "budget, under the launch bounds' 6")
     return {"build_s": build_s, "blocks": blocks, "direct_blocks": n_direct,
-            "stage_bytes": stage_bytes, "table_bytes": table.numel() * 4}
+            "stage_bytes": stage_bytes, "blocks_per_sm": per_sm,
+            "table_bytes": table.numel() * 4}
 
 
 def event_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -426,7 +435,7 @@ def phase_mat2(C):
           f"{n_kernel_px} kernel px", flush=True)
     if ml.n_fallback == 0:
         fail("the poisoned tiles did not become fallback tiles")
-    staging = staging_of(C, ml, "mat2")
+    staging = staging_of(C, ml, "mat2", C.cuda.COMPOSITE_MAT2)
 
     C.reset_counts()
     pano1 = vs.composite(frames)
@@ -505,7 +514,8 @@ def phase_mat2(C):
             *mat2_bound(B),
             # no one PyTorch call computes the integer-weight gather
             library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
-            stage_bytes=staging["stage_bytes"]))
+            stage_bytes=staging["stage_bytes"],
+            blocks_per_sm=staging["blocks_per_sm"]))
     ms32 = event_ms(torch,
                     lambda: m2.composite_mat2_planar_batched(planar32, ml),
                     reps=5, warmup=1)
@@ -801,7 +811,7 @@ def phase_feather(C):
           f"({fb_share:.6f} of the pixels)", flush=True)
     if two_slot == 0 or fb_share == 0:
         fail("the feather rig has no two-slot pixels or no fallback tiles")
-    staging = staging_of(C, ml, "feather")
+    staging = staging_of(C, ml, "feather", C.cuda.COMPOSITE_FEATHER)
 
     C.reset_counts()
     pano1 = vs.composite(frames)
@@ -871,7 +881,8 @@ def phase_feather(C):
             *feather_bound(B),
             # no one PyTorch call computes the dual integer-weight gather
             library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
-            stage_bytes=staging["stage_bytes"]))
+            stage_bytes=staging["stage_bytes"],
+            blocks_per_sm=staging["blocks_per_sm"]))
     ms16 = event_ms(torch, lambda: vs.composite_microbatch(planar16), reps=10,
                     warmup=2)
     metrics = {
@@ -1256,7 +1267,8 @@ def main() -> None:
         from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
         from stitchingvideo_tpu_torch.ops import window_probe as wp
         from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
-        from stitchingvideo_tpu_torch.ops.staging import staging_table
+        from stitchingvideo_tpu_torch.ops.staging import (STAGE_BUDGET,
+                                                          staging_table)
         from stitchingvideo_tpu_torch.video.lut import (CompositeLUT,
                                                         composite_frame_u8)
     except ImportError as e:
@@ -1298,7 +1310,8 @@ def main() -> None:
         CompositeLUT=CompositeLUT, composite_frame_u8=composite_frame_u8,
         frames_to_planar_i8=mat.frames_to_planar_i8,
         planar_to_hwc=mat.planar_to_hwc, remap_tiled=remap_tiled,
-        reset_counts=reset_counts, staging_table=staging_table, cuda=_cuda,
+        reset_counts=reset_counts, staging_table=staging_table,
+        STAGE_BUDGET=STAGE_BUDGET, cuda=_cuda,
         read_counts=lambda: {k.name: k.launches for k in kernels},
         frames=frames, frames_d=torch.from_numpy(np.stack(frames)).to(dev),
         planar32=torch.randint(-128, 128, (32, N_CAMS, 3) + FRAME_HW,

@@ -261,6 +261,13 @@ __device__ __forceinline__ float staged_value(unsigned st, unsigned o,
 // computed (with the second slots, a third would cost a block of the SM's
 // six on the product rig)
 constexpr int kSets = 2;
+// dynamic shared memory of a K4 block: the stages, then the second slots
+// (3 words of 4 pixels a thread)
+constexpr int feather_shared(int stage_bytes) {
+  return kSets * 3 * stage_bytes + 3 * 4 * staged::kPix * staged::kThreads;
+}
+static_assert(staged::fits_sm(feather_shared(staged::kBudget + 16)),
+              "the staging budget must leave room for the launch bounds");
 
 // K4: the staged composite. Per thread, for its 4 pixels, held in
 // registers over the B*3 planes: the first live slot (slot 0 if live, else
@@ -273,7 +280,7 @@ constexpr int kSets = 2;
 // which is the kernel's order: a slot that is not live has weight 0 and adds
 // a zero, which leaves acc as it is. A fallback pixel gets all-zero slots
 // and is overwritten by the exact float dual gather after the planes.
-__global__ void __launch_bounds__(staged::kThreads, 6)
+__global__ void __launch_bounds__(staged::kThreads, staged::kBlocksPerSM)
 composite_feather_kernel(const int8_t* __restrict__ frames,
                          const int32_t* __restrict__ tap_xy,
                          const int32_t* __restrict__ tap_cw,
@@ -367,6 +374,9 @@ composite_feather_kernel(const int8_t* __restrict__ frames,
       }
     });
   }
+  // store_plane wrote this thread's pixels' zeros from other lanes of its
+  // warp: order those stores before the exact values that overwrite them
+  __syncwarp();
   if (fallback)
     for (int k = 0; k < px.n; ++k) {
       const long long p = px.p + k * staged::kLanes;
@@ -389,8 +399,7 @@ extern "C" int composite_feather_launch(
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((Hp + kBlockH - 1) / kBlockH) *
                            ((Wp + kBlockW - 1) / kBlockW);
-  // the stages, then the second slots: 3 words of 4 pixels a thread
-  const int smem = kSets * 3 * stage_bytes + 3 * 4 * kPix * kThreads;
+  const int smem = feather_shared(stage_bytes);
   const int e = shared_above_default(composite_feather_kernel, smem);
   if (e) return e;
   composite_feather_kernel<<<(unsigned)blocks, kThreads, smem,
@@ -400,6 +409,16 @@ extern "C" int composite_feather_launch(
       (const float*)fb_sy, (const float*)fb_gw, (const int32_t*)table,
       (uint8_t*)out, B, N, H, W, Hp, Wp, stage_bytes);
   return (int)cudaGetLastError();
+}
+
+// Blocks of K4 that an SM holds at once with stages of `stage_bytes`, into
+// *blocks: a CUDA error, or 0.
+extern "C" int composite_feather_blocks_per_sm(int stage_bytes, int* blocks) {
+  const int smem = feather_shared(stage_bytes);
+  const int e = staged::shared_above_default(composite_feather_kernel, smem);
+  if (e) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, composite_feather_kernel, staged::kThreads, smem);
 }
 
 extern "C" const char* composite_feather_error_string(int e) {

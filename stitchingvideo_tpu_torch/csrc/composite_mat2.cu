@@ -202,6 +202,10 @@ __device__ __noinline__ void direct_block(
 // frame sets in the ring of K1/K2's stages: two in flight while one is
 // computed
 constexpr int kSets = 3;
+// dynamic shared memory of a K1/K2 block
+constexpr int mat2_shared(int stage_bytes) { return kSets * 3 * stage_bytes; }
+static_assert(staged::fits_sm(mat2_shared(staged::kBudget + 16)),
+              "the staging budget must leave room for the launch bounds");
 
 // K1/K2: the staged composite (staging.cuh). Per thread, for its 4 pixels:
 // the offsets of their taps in a stage, their four weights in one word and
@@ -210,7 +214,7 @@ constexpr int kSets = 3;
 // or fallback pixel gets weights 0 and gain 0 (value (0 + 128) * 0 = 0); a
 // fallback pixel is then overwritten by the exact float gather after the
 // planes.
-__global__ void __launch_bounds__(staged::kThreads, 6)
+__global__ void __launch_bounds__(staged::kThreads, staged::kBlocksPerSM)
 composite_mat2_kernel(const int8_t* __restrict__ frames,
                       const int32_t* __restrict__ tap_xy,
                       const int32_t* __restrict__ tap_cw,
@@ -281,6 +285,9 @@ composite_mat2_kernel(const int8_t* __restrict__ frames,
       }
     });
   }
+  // store_plane wrote this thread's pixels' zeros from other lanes of its
+  // warp: order those stores before the exact values that overwrite them
+  __syncwarp();
   if (fallback)
     for (int k = 0; k < px.n; ++k) {
       const long long p = px.p + k * kLanes;
@@ -366,7 +373,7 @@ extern "C" int composite_mat2_launch(const void* frames, const void* tap_xy,
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((Hp + kBlockH - 1) / kBlockH) *
                            ((Wp + kBlockW - 1) / kBlockW);
-  const int smem = kSets * 3 * stage_bytes;
+  const int smem = mat2_shared(stage_bytes);
   const int e = shared_above_default(composite_mat2_kernel, smem);
   if (e) return e;
   composite_mat2_kernel<<<(unsigned)blocks, kThreads, smem,
@@ -376,6 +383,16 @@ extern "C" int composite_mat2_launch(const void* frames, const void* tap_xy,
       (const float*)fb_sy, (const float*)fb_gain, (const int32_t*)table,
       (uint8_t*)out, B, N, H, W, Hp, Wp, stage_bytes);
   return (int)cudaGetLastError();
+}
+
+// Blocks of K1/K2 that an SM holds at once with stages of `stage_bytes`,
+// into *blocks: a CUDA error, or 0.
+extern "C" int composite_mat2_blocks_per_sm(int stage_bytes, int* blocks) {
+  const int smem = mat2_shared(stage_bytes);
+  const int e = staged::shared_above_default(composite_mat2_kernel, smem);
+  if (e) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, composite_mat2_kernel, staged::kThreads, smem);
 }
 
 extern "C" int composite_mat2_pieces_launch(

@@ -21,12 +21,20 @@ namespace staged {
 constexpr int kBlockH = 32, kBlockW = 32;   // ops/staging.py BLOCK_H/BLOCK_W
 constexpr int kPix = 4;                     // pixels a thread
 constexpr int kThreads = kBlockH * kBlockW / kPix;
-constexpr int kBudget = 8192;               // ops/staging.py STAGE_BUDGET
-constexpr int kChunks = kBudget / 16 / kThreads;   // 16-byte copies a thread
+constexpr int kBudget = 4192;               // ops/staging.py STAGE_BUDGET
+constexpr int kChunks =                     // 16-byte copies a thread
+    (kBudget / 16 + kThreads - 1) / kThreads;
 constexpr int kDirect = -2;                 // ops/staging.py DIRECT
+constexpr int kBlocksPerSM = 6;             // the kernels' launch bounds
 
 static_assert(kThreads * kPix == kBlockH * kBlockW, "block shape");
-static_assert(kChunks * 16 * kThreads == kBudget, "budget in whole copies");
+static_assert(kBudget % 16 == 0, "budget in whole copies");
+
+// Dynamic shared memory of kBlocksPerSM blocks that each take `bytes`, with
+// the 1 KB a block reserves, fits an H100 SM's 228 KB.
+constexpr bool fits_sm(int bytes) {
+  return kBlocksPerSM * (bytes + 1024) <= 228 * 1024;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);

@@ -95,6 +95,21 @@ class KernelLibrary:
             raise RuntimeError(f"{self.entry}: CUDA error {rc}: "
                                f"{self._err(rc).decode()}")
 
+    def blocks_per_sm(self, stage_bytes: int) -> int:
+        """Blocks of a staged kernel that an SM holds at once with stages of
+        `stage_bytes` (`<entry>_blocks_per_sm`, the CUDA occupancy query)."""
+        self._load()
+        lib = ctypes.CDLL(str(self.path))
+        fn = getattr(lib, f"{self.entry}_blocks_per_sm")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        rc = fn(stage_bytes, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{self.entry}_blocks_per_sm: CUDA error {rc}: "
+                               f"{self._err(rc).decode()}")
+        return blocks.value
+
 
 def local_includes(source: Path) -> list:
     """`source` and every file it includes with `#include "..."` from its

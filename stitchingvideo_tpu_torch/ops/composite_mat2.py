@@ -28,7 +28,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,9 +69,10 @@ class MatLUT2:
     fb_cam:  [F] int32      their camera (-1 = uncovered)
     fb_sx, fb_sy, fb_gain: [F] f32 their clipped source coords and gain
     n_fallback: fallback tiles;  n_cams: highest camera index + 1
-    stage_table: [blocks, 2, 4] int32  the kernel's staging table
-                            (`ops/staging.py`); the plain versions do not
-                            read it
+    stage_table: [blocks, 2, 4] int32  the staged kernel's staging table
+                            (`ops/staging.py`); None on a window stack's
+                            state, whose kernel does not stage; the plain
+                            versions do not read it
     stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
@@ -86,9 +87,9 @@ class MatLUT2:
     n_cams: int
     pano_hw: Tuple[int, int]
     frame_hw: Tuple[int, int]
-    stage_table: torch.Tensor
-    stage_bytes: int
-    n_direct: int
+    stage_table: Optional[torch.Tensor] = None
+    stage_bytes: int = 0
+    n_direct: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -138,6 +139,19 @@ def build_mat2_lut(lut, frame_hw: Tuple[int, int]) -> MatLUT2:
 
 
 def _materialize2(tlut: TiledLUT) -> MatLUT2:
+    """The staged kernel's state: the per-pixel state and its staging
+    table."""
+    ml = _per_pixel2(tlut)
+    f = ml.fields()
+    kern = torch.nonzero(ml.tap_cw >= 0).reshape(-1)
+    table, stage_bytes, n_direct = staging_table(
+        [(kern, f["cam"][kern], f["x0"][kern], f["y0"][kern])], ml.pano_hw,
+        ml.frame_hw)
+    return dataclasses.replace(ml, stage_table=table, stage_bytes=stage_bytes,
+                               n_direct=n_direct)
+
+
+def _per_pixel2(tlut: TiledLUT) -> MatLUT2:
     fh, fw = tlut.frame_hw
     check_packable(tlut.frame_hw)
     Hp, Wp = tlut.pano_hw
@@ -158,17 +172,13 @@ def _materialize2(tlut: TiledLUT) -> MatLUT2:
     fb_index = (torch.cumsum(fb, 0, dtype=torch.int32) - 1)
     tap_xy = torch.where(fb, fb_index, tap_xy)
     fb_pix = torch.nonzero(fb).reshape(-1)
-    kern = torch.nonzero(tap_cw >= 0).reshape(-1)
-    table, stage_bytes, n_direct = staging_table(
-        [(kern, cam[kern], x0[kern], y0[kern])], (Hp, Wp), (fh, fw))
     return MatLUT2(
         tap_xy=tap_xy.contiguous(), tap_cw=tap_cw.contiguous(),
         gc=(gain * covered.to(torch.float32)).contiguous(),
         fb_pix=fb_pix, fb_cam=cam[fb_pix], fb_sx=sx[fb_pix],
         fb_sy=sy[fb_pix], fb_gain=gain[fb_pix],
         n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
-        pano_hw=(Hp, Wp), frame_hw=(fh, fw), stage_table=table,
-        stage_bytes=stage_bytes, n_direct=n_direct)
+        pano_hw=(Hp, Wp), frame_hw=(fh, fw))
 
 
 def materialize2_used(tlut: TiledLUT) -> MatLUT2:
@@ -181,12 +191,12 @@ def materialize2_used(tlut: TiledLUT) -> MatLUT2:
     pixel reads its 4-byte `tap_cw` and writes the zeros itself: a list of
     used blocks would save that read but pay a zero-fill pass over the whole
     output first, which writes the same bytes. So the state is
-    `_materialize2`'s, with nothing added, and the function computed is the
-    same."""
+    `_materialize2`'s per-pixel state, without the staging table that only
+    the staged kernel reads, and the function computed is the same."""
     if tlut.pano_hw[0] * tlut.pano_hw[1] >= 1 << 31:
         raise ValueError(f"window stack {tlut.pano_hw} too large for int32 "
                          "pixel indices")
-    return _materialize2(tlut)
+    return _per_pixel2(tlut)
 
 
 def bilinear_taps(sx, sy, H: int, W: int):
@@ -317,6 +327,8 @@ def check_staged(planar_b: torch.Tensor, state: Tuple[torch.Tensor, ...],
     if N * 3 * H * W >= 1 << 31 or state[0].shape[-1] >= 1 << 31:
         raise ValueError(f"a frame set of {N}x3x{H}x{W} or its panorama is "
                          "too large for int32 offsets")
+    if table is None:
+        raise ValueError("the state has no staging table (a window stack's)")
     if not all(t.is_contiguous() for t in (planar_b, table) + tuple(state)):
         raise ValueError("frames and state must be contiguous")
     if planar_b.data_ptr() % 16 or table.data_ptr() % 16:

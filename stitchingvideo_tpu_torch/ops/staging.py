@@ -34,7 +34,18 @@ import torch
 BLOCK_H = 32                 # panorama rows of a block
 BLOCK_W = 32                 # panorama columns of a block
 SLOTS = 2                    # cameras a staged block may tap
-STAGE_BUDGET = 8192          # bytes of boxes a block stages for one plane
+# Bytes of boxes a block stages for one plane. The kernels are launched for
+# 6 blocks an SM (`__launch_bounds__(256, 6)`), and every block takes shared
+# memory for the largest staged block of the state (`stage_bytes`), so a
+# block with more box bytes than 6 blocks an SM leave room for goes direct
+# instead of costing every block of the panorama its residency. An H100 SM
+# has 228 KB of shared memory and reserves 1 KB of it a block: 6 blocks
+# leave 37,888 bytes of dynamic shared memory a block. mat2 takes 3 ring stages of 3 planes (9 * stage_bytes) and
+# feather 2 (6 * stage_bytes + 12,288 for its second slots); mat2's
+# 37,888 // 9 = 4,209, down to a multiple of 16 less the 16 bytes past the
+# boxes, bounds both. csrc/staging.cuh mirrors it as kBudget, and each kernel
+# asserts at compile time that 6 blocks fit.
+STAGE_BUDGET = 4192
 COPY = 16                    # bytes of one asynchronous copy
 DIRECT = -2                  # slot 0's camera on a direct-gather block
 
@@ -46,7 +57,7 @@ def grid_of(pano_hw) -> Tuple[int, int]:
 
 
 def staging_table(taps: Sequence[Tuple[torch.Tensor, ...]], pano_hw,
-                  frame_hw, budget: int = STAGE_BUDGET):
+                  frame_hw):
     """The staging table of a state: (table [blocks, SLOTS, 4] int32,
     stage_bytes, direct blocks).
 
@@ -97,7 +108,7 @@ def staging_table(taps: Sequence[Tuple[torch.Tensor, ...]], pano_hw,
             torch.where(has, col0, zero),
             torch.where(has, (rows << 16) | cols, zero)], dim=1)
         total += torch.where(has, rows * cols, zero)
-    direct = (n_cams > SLOTS) | (total > budget)
+    direct = (n_cams > SLOTS) | (total > STAGE_BUDGET)
     if fw % COPY:
         direct |= n_cams > 0
     table[direct] = 0

@@ -422,15 +422,16 @@ def test_window_probe_refuses_what_it_does_not_take(dev):
 # -- the staged mat2 and feather kernels --------------------------------------
 
 def _direct_lut():
-    """`_state`'s map at 256-row frames with, in the first block, a tile row
-    of each of three cameras (8x128 tiles of one camera each, no fallback
-    tile), and blocks right of x = 256 that sample 6 frame rows a panorama
-    row (boxes over the staging budget; their tiles fit their windows): both
-    take the kernel's direct gather."""
+    """`_state`'s map at 256-row frames on a 192x2048 panorama (boxes within
+    the staging budget) with, in the first block, a tile row of each of
+    three cameras (8x128 tiles of one camera each, no fallback tile), and
+    blocks right of x = 256 that sample 6 frame rows a panorama row (boxes
+    over the budget; their tiles fit their windows): both take the kernel's
+    direct gather, every other block is staged."""
     fh, fw = 256, 512
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 255, (3, fh, fw, 3), np.uint8)
-    ph, pw = 64, 1024
+    ph, pw = 192, 2048
     xx, yy = np.meshgrid(np.arange(pw, dtype=np.float32),
                          np.arange(ph, dtype=np.float32))
     seg = pw // 3
@@ -452,27 +453,41 @@ def _direct_lut():
 
 def _mat2_case(kind, dev):
     """(frames [N, H, W, 3], MatLUT2 on the card, frame_hw) of a staged
-    kernel case: 'poisoned' has fallback tiles; 'odd' a 61x1000 panorama
-    (no multiple of the 32x32 block), 'ragged' a 61x998 one (rows of no
-    multiple of 4 pixels: no 16-byte state loads, byte stores); 'direct'
-    blocks of the direct gather."""
+    kernel case, its panorama tall enough that its boxes fit the staging
+    budget: 'poisoned' has fallback tiles; 'odd' a 122x1000 panorama (no
+    multiple of the 32x32 block), 'ragged' a 122x998 one (rows of no
+    multiple of 4 pixels: no 16-byte state loads, byte stores);
+    'ragged_fallback' the poisoned map at 122x998, a fallback tile at its
+    ragged right edge; 'direct' blocks of the direct gather."""
     if kind == "direct":
         frames, lut, frame_hw = _direct_lut()
     else:
-        shape = {"poisoned": {}, "odd": ODD,
-                 "ragged": dict(ph=61, pw=998)}[kind]
-        frames, lut = _state("poisoned" if kind == "poisoned" else "rot04",
-                             **shape)
+        shape = {"poisoned": dict(ph=128), "odd": dict(ph=122, pw=1000),
+                 "ragged": dict(ph=122, pw=998),
+                 "ragged_fallback": dict(ph=122, pw=998)}[kind]
+        frames, lut = _state("rot04" if kind in ("odd", "ragged")
+                             else "poisoned", **shape)
         frame_hw = FRAME_HW
     return frames, m2.build_mat2_lut(lut.to(dev), frame_hw), frame_hw
 
 
+def _fallback_at_ragged_edge(ml) -> bool:
+    """Whether a fallback-tile pixel lies in the last block column of a
+    panorama whose rows are no multiple of 4 pixels."""
+    Wp = ml.pano_hw[1]
+    return Wp % 4 != 0 and bool(
+        ((ml.fb_pix % Wp) >= Wp // 32 * 32).any())
+
+
 @pytest.mark.parametrize("B", (1, 3, 32))
-@pytest.mark.parametrize("kind", ("poisoned", "odd", "ragged", "direct"))
+@pytest.mark.parametrize("kind", ("poisoned", "odd", "ragged",
+                                  "ragged_fallback", "direct"))
 def test_staged_mat2_kernel_matches_plain(dev, kind, B):
     frames, ml, frame_hw = _mat2_case(kind, dev)
-    assert (ml.n_fallback > 0) == (kind == "poisoned")
+    assert (ml.n_fallback > 0) == (kind in ("poisoned", "ragged_fallback"))
+    assert _fallback_at_ragged_edge(ml) == (kind == "ragged_fallback")
     assert (ml.n_direct > 0) == (kind == "direct")
+    assert bool((ml.stage_table[:, 0, 0] >= 0).any())
     gen = torch.Generator(device=dev).manual_seed(B)
     planar = torch.randint(-128, 128, (B, 3, 3) + frame_hw, dtype=torch.int8,
                            device=dev, generator=gen)
@@ -487,12 +502,12 @@ def test_staged_mat2_kernel_matches_plain(dev, kind, B):
 
 
 def _feather_direct():
-    """A blend LUT on 256-row frames whose first block has tiles of three
-    cameras (rows 8-15 of camera 2 alone, rows 16-23 of camera 1 alone: no
-    fallback tile) and whose blocks in x = 256..511 sample 6 frame rows a
-    panorama row (boxes over the staging budget; their tiles fit their
-    windows)."""
-    frames, blut = _blend_state(Hp=64, Wp=768, frame_hw=(256, 512))
+    """A blend LUT on 256-row frames and a 192x1536 panorama (boxes within
+    the staging budget) whose first block has tiles of three cameras (rows
+    8-15 of camera 2 alone, rows 16-23 of camera 1 alone: no fallback tile)
+    and whose blocks in x = 256..511 sample 6 frame rows a panorama row
+    (boxes over the budget; their tiles fit their windows)."""
+    frames, blut = _blend_state(Hp=192, Wp=1536, frame_hw=(256, 512))
     for rows, c in ((slice(8, 16), 2), (slice(16, 24), 1)):
         blut.cam_a[rows, :128] = c
         blut.cam_b[rows, :128] = -1
@@ -503,16 +518,33 @@ def _feather_direct():
     return frames, blut, (256, 512)
 
 
+def _feather_ragged_fallback():
+    """`_blend_state` on a 122x698 panorama (rows of no multiple of 4
+    pixels) whose top-right tile gets second slots of cameras 1 and 0 beside
+    camera 2's first slots: a fallback tile at the ragged right edge."""
+    frames, blut = _blend_state(Hp=122, Wp=698)
+    for cols, c in ((slice(670, 680), 1), (slice(680, 689), 0)):
+        blut.cam_b[:8, cols] = c
+        blut.sx_b[:8, cols] = 10.0
+        blut.gw_b[:8, cols] = 0.3
+    return frames, blut
+
+
 @pytest.mark.parametrize("B", (1, 3, 32))
-@pytest.mark.parametrize("kind", ("fallback", "direct"))
+@pytest.mark.parametrize("kind", ("fallback", "ragged_fallback", "direct"))
 def test_staged_feather_kernel_matches_plain(dev, kind, B):
     if kind == "direct":
         frames, blut, frame_hw = _feather_direct()
+    elif kind == "fallback":
+        (frames, blut), frame_hw = _blend_state((130, 131, 600),
+                                                Hp=122), FRAME_HW
     else:
-        (frames, blut), frame_hw = _blend_state((130, 131, 600)), FRAME_HW
+        (frames, blut), frame_hw = _feather_ragged_fallback(), FRAME_HW
     ml = fe.build_feather_mat(blut.to(dev), frame_hw)
-    assert (ml.n_fallback > 0) == (kind == "fallback")
+    assert (ml.n_fallback > 0) == (kind != "direct")
+    assert _fallback_at_ragged_edge(ml) == (kind == "ragged_fallback")
     assert (ml.n_direct > 0) == (kind == "direct")
+    assert bool((ml.stage_table[:, 0, 0] >= 0).any())
     live = ml.tap_cw >= 0
     assert bool((live[0] & live[1]).any())
     gen = torch.Generator(device=dev).manual_seed(B)

@@ -130,7 +130,7 @@ def three_cameras_and_a_tall_box():
     return np.asarray(frames), lut, (fh, fw)
 
 
-def test_direct_blocks_are_the_ones_that_do_not_fit():
+def test_direct_blocks_are_the_ones_that_do_not_fit(monkeypatch):
     """A block whose kernel pixels tap three cameras, and blocks whose boxes
     exceed the budget, take the direct gather; every other block is staged.
     With a budget under every box, every block with a kernel pixel is
@@ -171,12 +171,33 @@ def test_direct_blocks_are_the_ones_that_do_not_fit():
     assert bool(over[256 // stg.BLOCK_W])        # first block row, x = 256
     # a budget under every box: every block with a kernel pixel is direct
     taps = kernel_taps(ml)
-    table, stage_bytes, n_direct = stg.staging_table(
-        taps, ml.pano_hw, frame_hw, budget=16)
+    with monkeypatch.context() as m:
+        m.setattr(stg, "STAGE_BUDGET", 16)
+        table, stage_bytes, n_direct = stg.staging_table(
+            taps, ml.pano_hw, frame_hw)
     assert n_direct == int((n_cams > 0).sum()) and stage_bytes == 16
     # rows that do not start on 16-byte boundaries: no block is staged
     table, _, n_direct = stg.staging_table(taps, ml.pano_hw, (fh, fw - 8))
     assert n_direct == int((n_cams > 0).sum())
+
+
+def test_window_stack_state_has_no_table():
+    """`materialize2_used` (the pieces kernel's state, which does not stage)
+    builds no staging table and is otherwise the staged state; the staged
+    kernels refuse a state without a table."""
+    frames, lut = make_state("poisoned")
+    tlut = tmat2.build_tiled_lut(torch_lut(lut), FRAME_HW)
+    full, bare = tmat2._materialize2(tlut), tmat2.materialize2_used(tlut)
+    assert full.stage_table is not None and bare.stage_table is None
+    assert (bare.stage_bytes, bare.n_direct) == (0, 0)
+    for f in dataclasses.fields(full):
+        if f.name in ("stage_table", "stage_bytes", "n_direct"):
+            continue
+        a, b = getattr(full, f.name), getattr(bare, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    planar = frames_to_planar_i8(torch.from_numpy(np.asarray(frames)))[None]
+    with pytest.raises(ValueError, match="no staging table"):
+        tmat2.check_staged(planar, (bare.tap_xy, bare.tap_cw, bare.gc), None)
 
 
 @pytest.mark.parametrize("kind", ("mat2", "feather"))
