@@ -15,7 +15,8 @@ What it does, in phases (any failure exits non-zero):
      `composite_microbatch` at B=16 and B=32; then the band-shift copy
      `shift_planar_bn` through its own entry point;
   5. mat (`kernel='mat'`): `composite` and `composite_microbatch` at B=16 on
-     the un-poisoned rig; the output also equals mat2's on the same LUT;
+     the un-poisoned rig; the output also equals mat2's on the same LUT, and
+     so does its staging table (the same taps);
   6. tiled (`kernel='tiled'`): `composite`; and `remap_tiled` of one frame
      through one camera's map against `composite_tiled` on that LUT, with
      one `grid_sample` call on the same map as a yardstick;
@@ -46,9 +47,10 @@ What it does, in phases (any failure exits non-zero):
   read after it, each kernel's output is held bit-exact against its plain
   PyTorch version on the card (TF32 off), batched output against single
   output, and the seam-select outputs against the exact gather oracle. The
-  mat2 and feather phases also rebuild their state's staging table (the
-  source boxes their kernels stage into shared memory) from its taps, time
-  it, and print its direct-gather blocks and its bytes a stage.
+  mat2, mat, feather and multiband phases also rebuild their state's
+  staging table (the source boxes their kernels stage into shared memory)
+  from its taps, time it, and print its direct-gather blocks, its bytes a
+  stage and the blocks an SM holds.
   10. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
@@ -59,13 +61,15 @@ checkout itself and the registration file the script wrote.
 
     python3 chip_smoke.py --ab DIR   # instead of the phases above
 
-times the mat2 and feather kernels against other versions of their sources
-(one subdirectory of DIR each, e.g. an earlier commit's `csrc/`) in turns on
-the product rigs, each version's output held equal to the checkout's.
+times the staged kernels (mat2, mat, the multiband warp stage's pieces
+kernel, feather) against other versions of their sources (one subdirectory
+of DIR each, e.g. an earlier commit's `csrc/`) in turns on the product rigs,
+each version's output held equal to the checkout's.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -302,7 +306,7 @@ def mat2_needs(torch, ml, m2) -> dict:
 
 
 def staging_of(C, ml, what: str, library) -> dict:
-    """The staging table of a mat2 or feather state: rebuilt from the
+    """The staging table of a staged kernel's state: rebuilt from the
     state's kernel taps and timed (the part of the state build it costs),
     checked equal to the state's, and printed with its direct-gather blocks,
     stage size and the blocks of the kernel (`library`) an SM holds at that
@@ -575,6 +579,7 @@ def phase_mat(C):
     if vs._tlut is None or vs._tlut[0] != "mat":
         fail(f"kernel='mat' built {vs._tlut and vs._tlut[0]}, not mat")
     ml = vs._tlut[1]
+    staging = staging_of(C, ml, "mat", C.cuda.COMPOSITE_MAT)
 
     C.reset_counts()
     pano1 = vs.composite(frames)
@@ -592,12 +597,16 @@ def phase_mat(C):
         if not torch.equal(mat.composite_mat_planar(planar16[b], ml),
                            out16[b]):
             fail(f"mat batched output {b} differs from the single-frame one")
-    # without fallback tiles, mat and mat2 are one function
+    # without fallback tiles, mat and mat2 are one function, and their
+    # kernel pixels tap the same source pixels: the same staging table
     ml2 = m2.build_mat2_lut(vs._lut, FRAME_HW)
     if not torch.equal(m2.composite_mat2_planar(planar1, ml2), got1) or \
             not torch.equal(m2.composite_mat2_planar_batched(planar16, ml2),
                             out16):
         fail("mat output differs from mat2 output on the same LUT")
+    if not torch.equal(ml.stage_table, ml2.stage_table) or \
+            (ml.stage_bytes, ml.n_direct) != (ml2.stage_bytes, ml2.n_direct):
+        fail("mat's staging table differs from mat2's on the same LUT")
     del ml2, out16
     oracle = C.composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
     gather_gate(got1, oracle, 4, "mat")
@@ -610,8 +619,10 @@ def phase_mat(C):
     lut_bytes = 4 * npix + 8 * n_kern     # tap_cw; tap_xy, gc where covered
 
     def mat_bound(B):
-        return bound(B * frame_bytes + lut_bytes + B * 3 * npix,
-                     B * 3 * 14 * n_kern)
+        # the frame sectors, B times; the LUT as read and the staging
+        # table; B*3 output planes
+        return bound(B * frame_bytes + lut_bytes + staging["table_bytes"]
+                     + B * 3 * npix, B * 3 * 14 * n_kern)
 
     rows = []
     for k, B, err, fn in (
@@ -627,19 +638,22 @@ def phase_mat(C):
                      reps=2, warmup=1),
             *mat_bound(B),
             # no one PyTorch call computes the integer-weight gather
-            library_ms=None, batch=B))
+            library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
+            stage_bytes=staging["stage_bytes"],
+            blocks_per_sm=staging["blocks_per_sm"]))
     ms16 = event_ms(torch, lambda: vs.composite_microbatch(planar16), reps=10,
                     warmup=2)
     metrics = {
         "fps_microbatch_b16": 16 / (ms16 / 1e3),
         "b1_latency_device": latency(
             torch, lambda: vs.composite_planar(frames_d), 20),
-        "install_lut_s": install_s,
+        "install_lut_s": install_s, "staging": staging,
         "needs": {"frame_bytes": frame_bytes, "lut_bytes": lut_bytes,
                   "kernel_px": n_kern},
     }
     print("mat: kernel outputs bit-exact against the plain version and "
-          "against mat2, batched == single", flush=True)
+          "against mat2, batched == single; staging table == mat2's",
+          flush=True)
     return rows, metrics
 
 
@@ -932,6 +946,7 @@ def phase_multiband(C):
              f"{st.out_hw}: not the product size")
     if ml.n_fallback == 0:
         fail("the curvature patch did not become fallback tiles")
+    staging = staging_of(C, ml, "pieces", C.cuda.COMPOSITE_MAT2_PIECES)
 
     # -- the main path, counted
     planar1 = C.frames_to_planar_i8(frames_d)
@@ -1005,10 +1020,11 @@ def phase_multiband(C):
     need = mat2_needs(torch, ml, m2)
 
     def pieces_bound(B):
-        # frame sectors the taps touch, B times; the state as read; 2 bytes
-        # a value out. Operations as mat2, plus a convert a value
+        # frame sectors the taps touch, B times; the state as read and the
+        # staging table; 2 bytes a value out. Operations as mat2, plus a
+        # convert a value
         return bound(B * need["frame_bytes"] + need["lut_bytes"]
-                     + B * 3 * npix * 2,
+                     + staging["table_bytes"] + B * 3 * npix * 2,
                      B * 3 * (15 * need["kernel_px"]
                               + 17 * need["fallback_px"] + 1 * npix))
 
@@ -1035,7 +1051,10 @@ def phase_multiband(C):
                 planar, ml, Nv), reps=1, warmup=1),
             *pieces_bound(B),
             # no one PyTorch call computes the integer-weight gather
-            library_ms=None, batch=B, path=path))
+            library_ms=None, batch=B, path=path,
+            direct_blocks=staging["direct_blocks"],
+            stage_bytes=staging["stage_bytes"],
+            blocks_per_sm=staging["blocks_per_sm"]))
     zero_ms = event_ms(torch, x8.zero_, reps=10, warmup=2)
     del x8
 
@@ -1064,6 +1083,7 @@ def phase_multiband(C):
             torch, lambda: mb.multiband_video_frame(planar1, st, crop_yx), 20),
         "load_registration_s": load_s, "build_multiband_state_s": build_s,
         "zero_fill_ms_b8": zero_ms, "uncovered_share": uncovered,
+        "staging": staging,
         "fallback_tiles": ml.n_fallback, "windows": Nv,
         "window_hw": list(st.buf_hw), "bands": st.bands,
         "vs_seam_select": {"median": seam_med, "within8": seam_within8},
@@ -1168,77 +1188,126 @@ def phase_probe(C):
 
 # -- the staged kernels against other sources of theirs ----------------------
 
+# each staged entry point: its source's stem, its pointer and int arguments
+# before and since its staged signature (..., stage table, out, B, N, H, W,
+# <tail>, stage bytes, stream; before it: ..., out, B, N, H, W, <tail>,
+# stream, with a 64-bit pixel count last in the tail)
+AB_ENTRIES = {
+    "composite_mat2": ("composite_mat2", 7, 2),
+    "composite_mat": ("composite_mat2", 3, 2),
+    "composite_mat2_pieces": ("composite_mat2", 7, 3),
+    "composite_feather": ("composite_feather", 7, 2),
+}
+
+
+def ab_argtypes(entry: str, staged: bool) -> list:
+    """The launch signature of `entry`: staged (frames, the state, the stage
+    table, out, B, N, H, W, the tail's ints, stage bytes, stream) or the
+    earlier one-thread-a-pixel one (no table, no stage bytes, the tail's
+    last int a 64-bit pixel count: npix, or the window's pixels)."""
+    P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _, n_state, n_tail = AB_ENTRIES[entry]
+    if staged:
+        return [P_] * (n_state + 3) + [I_] * (4 + n_tail + 1) + [P_]
+    # the earlier tails: npix (mat2, mat, feather); pieces, window pixels
+    n_old = 1 if n_tail == 2 else 2
+    return [P_] * (n_state + 2) + [I_] * (4 + n_old - 1) + [L_, P_]
+
+
 def phase_ab(C, ab_dir: str):
-    """The mat2 and feather kernels of the checkout against other versions
-    of their sources, on the same inputs of the product rigs: each
-    subdirectory of `ab_dir` may hold a `composite_mat2.cu` and a
-    `composite_feather.cu` (with the headers they include), with the
-    checkout's launch signature or the earlier one-thread-a-pixel one (...,
-    out, B, N, H, W, npix, stream). Every version's output is held equal to
-    the checkout's bit for bit; then all are timed by CUDA events in turns,
-    forward and back (a, b, ..., b, a)."""
+    """The staged kernels of the checkout (mat2, mat, the pieces kernel,
+    feather) against other versions of their sources, on the same inputs of
+    the product rigs: each subdirectory of `ab_dir` may hold a
+    `composite_mat2.cu` and a `composite_feather.cu` (with the headers they
+    include); each entry point's signature, the checkout's staged one or the
+    earlier one-thread-a-pixel one, is read from its declaration. Every
+    version's output is held equal to the checkout's bit for bit; then all
+    are timed by CUDA events in turns, forward and back (a, b, ..., b, a)."""
+    import re
     from pathlib import Path
-    torch, m2, fe, _cuda = C.torch, C.m2, C.fe, C.cuda
-    P_, I_, L_ = _cuda._P, _cuda._I, _cuda._L
-    libs = {"composite_mat2": [], "composite_feather": []}
+    torch, m2, mat, fe, _cuda = C.torch, C.m2, C.mat, C.fe, C.cuda
+    libs = {entry: [] for entry in AB_ENTRIES}
     for d in sorted(p for p in Path(ab_dir).resolve().iterdir()
                     if p.is_dir()):
-        for stem, found in libs.items():
+        for entry, (stem, _, _) in AB_ENTRIES.items():
             src = d / f"{stem}.cu"
             if not src.exists():
                 continue
-            staged = "stage_bytes" in src.read_text()
-            lib = _cuda.KernelLibrary(stem, [P_] * 10 + [I_] * 7 + [P_]
-                                      if staged else
-                                      [P_] * 9 + [I_] * 4 + [L_, P_])
+            decl = re.search(r'extern "C" int ' + entry + r'_launch\((.*?)\)',
+                             src.read_text(), re.S)
+            if decl is None:
+                continue
+            staged = "stage_bytes" in decl.group(1)
+            lib = _cuda.KernelLibrary(stem, ab_argtypes(entry, staged),
+                                      entry=entry)
             lib.source = src
-            found.append((d.name, staged, lib))
+            libs[entry].append((d.name, staged, lib))
     build_s = _cuda.build_all([lib for found in libs.values()
                                for _, _, lib in found])
     lut = C.CompositeLUT(*(torch.from_numpy(a).to(C.dev)
                            for a in synthetic_lut(C.seed, poison=True)))
     mat2 = m2.build_mat2_lut(lut, FRAME_HW)
+    single = mat.build_mat_lut(C.clean_lut.to(C.dev), FRAME_HW)
     vs = C.VideoStitcher(video_cfg(C, compose_mode="feather"))
     save_and_load(vs, feather_registration(C.seed))
     fml = vs._ftlut[1]
+    vs = C.VideoStitcher(video_cfg(C, compose_mode="multiband"))
+    save_and_load(vs, multiband_registration(C.seed))
+    st = vs._mbtlut[0]
+    wml, Nv = st.warp_lut, len(st.piece_cam)
+    Hb, Wb = st.buf_hw
     stream = torch.cuda.current_stream().cuda_stream
     out = {"build_s": build_s, "cases": []}
-    for stem, ml, new_fn, Bs in (
-            ("composite_mat2", mat2, m2.composite_mat2_planar_batched,
+    u8 = torch.uint8
+    for entry, ml, state, new_fn, tail, out_shape, Bs in (
+            ("composite_mat2", mat2,
+             (mat2.tap_xy, mat2.tap_cw, mat2.gc, mat2.fb_cam, mat2.fb_sx,
+              mat2.fb_sy, mat2.fb_gain), m2.composite_mat2_planar_batched,
+             ((*PANO_HW,), (PANO_HW[0] * PANO_HW[1],)), (3,) + PANO_HW,
              (1, 16, 32)),
-            ("composite_feather", fml, fe.composite_feather_planar_batched,
+            ("composite_mat", single,
+             (single.tap_xy, single.tap_cw, single.gc),
+             mat.composite_mat_planar_batched,
+             ((*PANO_HW,), (PANO_HW[0] * PANO_HW[1],)), (3,) + PANO_HW,
+             (1, 16)),
+            ("composite_mat2_pieces", wml,
+             (wml.tap_xy, wml.tap_cw, wml.gc, wml.fb_cam, wml.fb_sx,
+              wml.fb_sy, wml.fb_gain),
+             lambda p, ml: m2.composite_mat2_planar_pieces_batched(p, ml, Nv),
+             ((Nv, Hb, Wb), (Nv, Hb * Wb)), (Nv, 3, Hb, Wb), (1, 8)),
+            ("composite_feather", fml,
+             (fml.tap_xy, fml.tap_cw, fml.gw, fml.fb_cam, fml.fb_sx,
+              fml.fb_sy, fml.fb_gw), fe.composite_feather_planar_batched,
+             ((*PANO_HW,), (PANO_HW[0] * PANO_HW[1],)), (3,) + PANO_HW,
              (1, 16))):
-        state = (ml.tap_xy, ml.tap_cw, ml.gc, ml.fb_cam, ml.fb_sx, ml.fb_sy,
-                 ml.fb_gain) if stem == "composite_mat2" else \
-            (ml.tap_xy, ml.tap_cw, ml.gw, ml.fb_cam, ml.fb_sx, ml.fb_sy,
-             ml.fb_gw)
-        Hp, Wp = ml.pano_hw
+        dtype = torch.bfloat16 if entry == "composite_mat2_pieces" else u8
         for B in Bs:
             planar = C.planar32[:B]
 
             def version(lib, staged, dst):
                 head = (planar,) + state + ((ml.stage_table,) if staged
                                             else ()) + (dst,)
-                tail = (Hp, Wp, ml.stage_bytes) if staged else (Hp * Wp,)
+                rest = tail[0] + (ml.stage_bytes,) if staged else tail[1]
                 return lambda: (lib(*(t.data_ptr() for t in head), B, N_CAMS,
-                                    *FRAME_HW, *tail, stream), dst)[1]
+                                    *FRAME_HW, *rest, stream), dst)[1]
 
             fns = [("checkout", lambda: new_fn(planar, ml))]
-            for name, staged, lib in libs[stem]:
+            for name, staged, lib in libs[entry]:
                 fns.append((name, version(lib, staged, torch.empty(
-                    (B, 3, Hp, Wp), dtype=torch.uint8, device=C.dev))))
+                    (B,) + out_shape, dtype=dtype, device=C.dev))))
             want = fns[0][1]()
             for name, fn in fns[1:]:
                 if not torch.equal(fn(), want):
-                    fail(f"{stem} at B={B}: {name} differs from the checkout")
+                    fail(f"{entry} at B={B}: {name} differs from the checkout")
             times = {name: [] for name, _ in fns}
             for name, fn in fns + fns[::-1]:
                 times[name].append(event_ms(torch, fn, reps=20, warmup=2))
-            case = {"kernel": stem, "batch": B, "ms": times}
+            case = {"kernel": entry, "batch": B, "ms": times}
             out["cases"].append(case)
-            print(f"ab {stem} B={B}: " + "; ".join(
+            print(f"ab {entry} B={B}: " + "; ".join(
                 f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in
                 times.items()) + " ms", flush=True)
+            del want, fns
     return [], out
 
 
@@ -1246,9 +1315,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="DIR", default="",
-                    help="instead of the phases, hold the mat2 and feather "
-                         "kernels against the versions of their sources in "
-                         "the subdirectories of DIR and time all in turns")
+                    help="instead of the phases, hold the staged kernels "
+                         "against the versions of their sources in the "
+                         "subdirectories of DIR and time all in turns")
     args = ap.parse_args()
 
     try:

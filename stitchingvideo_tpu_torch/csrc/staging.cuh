@@ -1,5 +1,5 @@
-// Staged gather of the seam-select (mat2) and feather kernels, for Hopper
-// (sm_90a): what both kernels share.
+// Staged gather of the seam-select (mat2), single-class (mat), multiband
+// warp (pieces) and feather kernels, for Hopper (sm_90a): what they share.
 //
 // A block of kThreads threads owns a square of kBlockH x kBlockW panorama
 // pixels; a thread owns kPix pixels of one block row, kLanes apart. Before
@@ -10,10 +10,12 @@
 // ring of stages of a frame set each (run_sets), so that the next frame sets
 // arrive while the current one is computed.
 // The taps are then read from shared memory, and each plane's results are
-// stored as 32-bit words of 4 adjacent pixels.
+// stored as words of 4 adjacent pixels: 32 bits of uint8, or 64 bits of
+// bfloat16 (the multiband warp stage's windows).
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace staged {
@@ -67,9 +69,10 @@ __device__ __forceinline__ Box box_of(int4 t) {
 constexpr int kLanes = kBlockW / kPix;      // threads of a block row
 struct Pixels {
   long long p;   // panorama index of pixel l of the block row
+  int y;         // the panorama row of the thread's pixels
   int n;         // of the thread's kPix pixels, how many lie in the panorama
   int nw;        // of the kPix pixels of its word, how many lie in it
-  bool vec;      // rows of a multiple of kPix pixels: 4-byte stores
+  bool vec;      // rows of a multiple of kPix pixels: whole-word stores
 };
 __device__ __forceinline__ Pixels thread_pixels(int Hp, int Wp) {
   const int nbx = (Wp + kBlockW - 1) / kBlockW;
@@ -79,6 +82,7 @@ __device__ __forceinline__ Pixels thread_pixels(int Hp, int Wp) {
   const int left = Wp - bx * kBlockW;       // columns of the block row
   Pixels px;
   px.p = (long long)y * Wp + bx * kBlockW + l;
+  px.y = y;
   px.n = y < Hp ? max(0, min(kPix, (left - l + kLanes - 1) / kLanes)) : 0;
   px.nw = y < Hp ? max(0, min(kPix, left - kPix * l)) : 0;
   px.vec = Wp % kPix == 0;
@@ -95,12 +99,12 @@ __device__ __forceinline__ void load_pixels(const T* __restrict__ a,
     v[k] = k < px.n ? a[px.p + k * kLanes] : fill;
 }
 
-// Store the thread's kPix uint8 results of one plane (byte k of `mine` is
-// pixel l + k * kLanes). Lane l takes byte l / 2 of the words of lanes
-// 4 * (l % 2) + m of its row, m = 0..3: pixels 4 * l + m, which it writes
-// as one word. Every lane of the warp takes part in the shuffles.
-__device__ __forceinline__ void store_plane(uint8_t* __restrict__ plane,
-                                            const Pixels& px, unsigned mine) {
+// The word of kPix adjacent uint8 results that this lane stores, from the
+// words of its row's lanes (byte k of `mine` is pixel l + k * kLanes): lane
+// l takes byte l / 2 of the words of lanes 4 * (l % 2) + m of its row,
+// m = 0..3, which are pixels 4 * l + m. Every lane of the warp takes part in
+// the shuffles.
+__device__ __forceinline__ unsigned row_word(unsigned mine) {
   static_assert(kPix == 4 && kLanes == 8, "the transpose is for 4 x 8");
   const int lane = threadIdx.x & 31, l = lane & 7;
   const int from = (lane & ~7) + 4 * (l & 1);
@@ -109,14 +113,55 @@ __device__ __forceinline__ void store_plane(uint8_t* __restrict__ plane,
   const unsigned w2 = __shfl_sync(0xffffffffu, mine, from + 2);
   const unsigned w3 = __shfl_sync(0xffffffffu, mine, from + 3);
   const unsigned sel = (l >> 1) | ((l >> 1) + 4) << 4;
-  const unsigned word = __byte_perm(__byte_perm(w0, w1, sel),
-                                    __byte_perm(w2, w3, sel), 0x5410);
-  uint8_t* dst = plane + px.p + 3 * l;      // pixel 4 * l of the block row
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel),
+                     0x5410);
+}
+
+// Store the word of pixels 4 * l .. 4 * l + 3 of the block row (l the
+// thread's lane in its row; byte m is pixel 4 * l + m), from the panorama
+// index px.p of pixel l: as one 32-bit word, byte by byte at a ragged edge.
+__device__ __forceinline__ void put_word(uint8_t* __restrict__ plane,
+                                         const Pixels& px, unsigned word) {
+  uint8_t* dst = plane + px.p + 3 * (threadIdx.x % kLanes);
   if (px.vec && px.nw == kPix) {
     *reinterpret_cast<unsigned*>(dst) = word;
     return;
   }
   for (int k = 0; k < px.nw; ++k) dst[k] = (uint8_t)(word >> (8 * k));
+}
+
+// The bfloat16 bits of bytes k and k + 1 of `word`, in the low and the high
+// half: a byte v as a float is exact, and v <= 255 has 8 significant bits,
+// so the float's low 16 bits are 0 and its high 16 bits are v as a
+// bfloat16.
+__device__ __forceinline__ unsigned bf16_pair(unsigned word, int k) {
+  const float lo = __uint2float_rn((word >> (8 * k)) & 0xffu);
+  const float hi = __uint2float_rn((word >> (8 * k + 8)) & 0xffu);
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// put_word into a bfloat16 plane: the 4 pixels as 4 bfloat16 values (0..255
+// are exact in it), one 8-byte store, 16-bit stores at a ragged edge.
+__device__ __forceinline__ void put_word(__nv_bfloat16* __restrict__ plane,
+                                         const Pixels& px, unsigned word) {
+  const uint2 v = make_uint2(bf16_pair(word, 0), bf16_pair(word, 2));
+  __nv_bfloat16* dst = plane + px.p + 3 * (threadIdx.x % kLanes);
+  if (px.vec && px.nw == kPix) {
+    *reinterpret_cast<uint2*>(dst) = v;
+    return;
+  }
+  unsigned short* half = reinterpret_cast<unsigned short*>(dst);
+  for (int k = 0; k < px.nw; ++k)
+    half[k] = (unsigned short)((k < 2 ? v.x : v.y) >> (16 * (k & 1)));
+}
+
+// Store the thread's kPix uint8 results of one plane (byte k of `mine` is
+// pixel l + k * kLanes), transposed across its row's lanes (row_word), into
+// a uint8 or a bfloat16 plane.
+template <class T>
+__device__ __forceinline__ void store_plane(T* __restrict__ plane,
+                                            const Pixels& px, unsigned mine) {
+  put_word(plane, px, row_word(mine));
 }
 
 // The uint8 result of a value: rounded half to even (cvt.rni), then, in

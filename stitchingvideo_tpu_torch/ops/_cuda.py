@@ -160,7 +160,7 @@ class CudaKernel:
         self.launches += 1
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 # frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, stage table,
 # out, B, N, H, W, Hp, Wp, stage bytes, stream
@@ -168,15 +168,16 @@ COMPOSITE_MAT2 = KernelLibrary("composite_mat2", [_P] * 10 + [_I] * 7 + [_P])
 # src, dst, B, N, rows (= 3*H), W, stream
 SHIFT_PLANAR_BN = KernelLibrary("shift_planar_bn",
                                 [_P, _P, _I, _I, _I, _I, _P])
-# the single-class kernel, in mat2's source (it shares the integer path):
-# frames, tap_xy, tap_cw, gc, out, B, N, H, W, npix, stream
-COMPOSITE_MAT = KernelLibrary("composite_mat2", [_P] * 5 +
-                              [_I, _I, _I, _I, _L, _P], entry="composite_mat")
-# the multiband warp stage, in mat2's source too (the same pixel function,
-# stored as bf16 windows): frames, tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy,
-# fb_gain, out, B, N, H, W, pieces, window pixels, stream
-COMPOSITE_MAT2_PIECES = KernelLibrary("composite_mat2", [_P] * 9 +
-                                      [_I, _I, _I, _I, _I, _L, _P],
+# the single-class kernel, mat2's staged kernel without the fallback path:
+# frames, tap_xy, tap_cw, gc, stage table, out, B, N, H, W, Hp, Wp,
+# stage bytes, stream
+COMPOSITE_MAT = KernelLibrary("composite_mat2", [_P] * 6 + [_I] * 7 + [_P],
+                              entry="composite_mat")
+# the multiband warp stage, mat2's staged kernel into bf16 windows: frames,
+# tap_xy, tap_cw, gc, fb_cam, fb_sx, fb_sy, fb_gain, stage table, out, B, N,
+# H, W, pieces, window rows, window columns, stage bytes, stream
+COMPOSITE_MAT2_PIECES = KernelLibrary("composite_mat2",
+                                      [_P] * 10 + [_I] * 8 + [_P],
                                       entry="composite_mat2_pieces")
 # frames, sx, sy, gain, cidx, out, N, H, W, ntx, T, Hp, Wp, stream
 COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])

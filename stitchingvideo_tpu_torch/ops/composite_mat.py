@@ -13,9 +13,11 @@ with the pixel's own slot selected (the other slot's finite value is
 multiplied by 0). The port keeps the reference's build, window by window
 (`_materialize`'s band-local coordinates, its clips, its weights), and stores
 the two non-zeros an axis of each hat matrix per pixel, in global frame
-coordinates: 12 bytes a pixel. Its kernel (`composite_mat_kernel`, in
-`csrc/composite_mat2.cu` beside mat2's, whose integer path it shares) gathers
-the four taps.
+coordinates: 12 bytes a pixel, and, as mat2's state does, the staging table
+of those taps (`ops/staging.py`). Its kernel is mat2's staged kernel without
+the fallback path (`csrc/composite_mat2.cu`): each block of 32x32 pixels
+stages the source boxes its pixels tap into shared memory and gathers the
+four taps there.
 
 Like the reference's, this kernel has no fallback path: a tile whose pixels
 overflow their window is composed wrong by the clipped weights. The
@@ -28,14 +30,15 @@ channel-planar uint8 (`frames_to_planar_i8`, `planar_to_hwc`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _cuda
 from .composite import VXW, WIN_H, TiledLUT, build_tiled_lut, untile
 from .composite_mat2 import (UNCOVERED, _taps, check_frames, check_packable,
-                             pack_taps, seam_select_plain, unpack_taps)
+                             check_staged, pack_taps, seam_select_plain,
+                             unpack_taps, with_staging_table)
 
 # launch counters of the kernel's two entry points
 MAT_SINGLE = _cuda.CudaKernel("composite_mat_planar", _cuda.COMPOSITE_MAT)
@@ -62,6 +65,11 @@ class MatLUT:
     tap_cw: [Hp*Wp] int32  cam << 16 | a << 8 | ay, or UNCOVERED (-1)
     gc:     [Hp*Wp] f32    gain * covered
     n_fallback: fallback tiles of the tile build (the kernel takes none)
+    stage_table: [blocks, 2, 4] int32  the kernel's staging table
+                            (`ops/staging.py`), None on a state built
+                            without it (the wrappers refuse one on the
+                            card); the plain version does not read it
+    stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
     tap_cw: torch.Tensor
@@ -70,6 +78,9 @@ class MatLUT:
     n_cams: int
     pano_hw: Tuple[int, int]
     frame_hw: Tuple[int, int]
+    stage_table: Optional[torch.Tensor] = None
+    stage_bytes: int = 0
+    n_direct: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -111,10 +122,11 @@ def _materialize(tlut: TiledLUT) -> MatLUT:
     def flat(a):
         return untile(a, tlut.grid_hw, tlut.pano_hw).reshape(-1).contiguous()
 
-    return MatLUT(tap_xy=flat(tap_xy), tap_cw=flat(tap_cw),
-                  gc=flat(tlut.gain * covered.to(torch.float32)),
-                  n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
-                  pano_hw=tlut.pano_hw, frame_hw=tlut.frame_hw)
+    return with_staging_table(MatLUT(
+        tap_xy=flat(tap_xy), tap_cw=flat(tap_cw),
+        gc=flat(tlut.gain * covered.to(torch.float32)),
+        n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
+        pano_hw=tlut.pano_hw, frame_hw=tlut.frame_hw))
 
 
 def build_mat_lut(lut, frame_hw: Tuple[int, int]) -> MatLUT:
@@ -146,13 +158,14 @@ def _composite(planar_b: torch.Tensor, ml: MatLUT,
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
     _check(planar_b, ml)
+    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc), ml.stage_table)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp, Wp), dtype=torch.uint8,
                       device=planar_b.device)
     kernel.launch(*(t.data_ptr() for t in (planar_b, ml.tap_xy, ml.tap_cw,
-                                           ml.gc, out)),
-                  B, N, H, W, Hp * Wp,
+                                           ml.gc, ml.stage_table, out)),
+                  B, N, H, W, Hp, Wp, ml.stage_bytes,
                   torch.cuda.current_stream(planar_b.device).cuda_stream)
     return out
 

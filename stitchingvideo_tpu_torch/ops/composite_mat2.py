@@ -70,9 +70,9 @@ class MatLUT2:
     fb_sx, fb_sy, fb_gain: [F] f32 their clipped source coords and gain
     n_fallback: fallback tiles;  n_cams: highest camera index + 1
     stage_table: [blocks, 2, 4] int32  the staged kernel's staging table
-                            (`ops/staging.py`); None on a window stack's
-                            state, whose kernel does not stage; the plain
-                            versions do not read it
+                            (`ops/staging.py`), None on a state built
+                            without it (the staged wrappers refuse one);
+                            the plain versions do not read it
     stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
@@ -141,7 +141,12 @@ def build_mat2_lut(lut, frame_hw: Tuple[int, int]) -> MatLUT2:
 def _materialize2(tlut: TiledLUT) -> MatLUT2:
     """The staged kernel's state: the per-pixel state and its staging
     table."""
-    ml = _per_pixel2(tlut)
+    return with_staging_table(_per_pixel2(tlut))
+
+
+def with_staging_table(ml):
+    """A per-pixel state (`MatLUT2` or `MatLUT`) with the staging table of
+    its kernel pixels' taps (`ops/staging.py`) over its panorama."""
     f = ml.fields()
     kern = torch.nonzero(ml.tap_cw >= 0).reshape(-1)
     table, stage_bytes, n_direct = staging_table(
@@ -182,21 +187,20 @@ def _per_pixel2(tlut: TiledLUT) -> MatLUT2:
 
 
 def materialize2_used(tlut: TiledLUT) -> MatLUT2:
-    """The per-pixel state of a `concat_tiled_luts` window stack, for the
-    pieces entry points below.
+    """The state of a `concat_tiled_luts` window stack, for the pieces
+    entry points below: `_materialize2`'s per-pixel state and staging table
+    over the stack's own panorama (the windows stacked along rows).
 
     The reference's build of this name drops every tile group without a
     covered pixel from its launch grid, over an output the caller zero-fills.
-    The port's kernel has one thread a pixel, and a thread of an uncovered
-    pixel reads its 4-byte `tap_cw` and writes the zeros itself: a list of
-    used blocks would save that read but pay a zero-fill pass over the whole
-    output first, which writes the same bytes. So the state is
-    `_materialize2`'s per-pixel state, without the staging table that only
-    the staged kernel reads, and the function computed is the same."""
+    The port's staged kernel writes every block: a block without a kernel
+    pixel stages nothing and stores its zeros, which writes the bytes a
+    zero-fill pass would, once. So the state is the mat2 state of the stack,
+    and the function computed is the same."""
     if tlut.pano_hw[0] * tlut.pano_hw[1] >= 1 << 31:
         raise ValueError(f"window stack {tlut.pano_hw} too large for int32 "
                          "pixel indices")
-    return _per_pixel2(tlut)
+    return _materialize2(tlut)
 
 
 def bilinear_taps(sx, sy, H: int, W: int):
@@ -328,7 +332,7 @@ def check_staged(planar_b: torch.Tensor, state: Tuple[torch.Tensor, ...],
         raise ValueError(f"a frame set of {N}x3x{H}x{W} or its panorama is "
                          "too large for int32 offsets")
     if table is None:
-        raise ValueError("the state has no staging table (a window stack's)")
+        raise ValueError("the state has no staging table")
     if not all(t.is_contiguous() for t in (planar_b, table) + tuple(state)):
         raise ValueError("frames and state must be contiguous")
     if planar_b.data_ptr() % 16 or table.data_ptr() % 16:
@@ -402,13 +406,14 @@ def _composite_pieces(planar_b: torch.Tensor, ml: MatLUT2, pieces: int,
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
     Hb, Wb = _window_hw(ml, pieces)
+    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc), ml.stage_table)
     B, N, _, H, W = planar_b.shape
     out = torch.empty((B, pieces, 3, Hb, Wb), dtype=torch.bfloat16,
                       device=planar_b.device)
     kernel.launch(*(t.data_ptr() for t in (
                       planar_b, ml.tap_xy, ml.tap_cw, ml.gc, ml.fb_cam,
-                      ml.fb_sx, ml.fb_sy, ml.fb_gain, out)),
-                  B, N, H, W, pieces, Hb * Wb,
+                      ml.fb_sx, ml.fb_sy, ml.fb_gain, ml.stage_table, out)),
+                  B, N, H, W, pieces, Hb, Wb, ml.stage_bytes,
                   torch.cuda.current_stream(planar_b.device).cuda_stream)
     return out
 

@@ -21,6 +21,7 @@ from stitchingvideo_tpu_torch.ops import composite as tiled
 from stitchingvideo_tpu_torch.ops import composite_feather as fe
 from stitchingvideo_tpu_torch.ops import composite_mat as mat
 from stitchingvideo_tpu_torch.ops import composite_mat2 as m2
+from stitchingvideo_tpu_torch.ops import staging
 from stitchingvideo_tpu_torch.ops import window_probe as wp
 from stitchingvideo_tpu_torch.ops.composite_mat import frames_to_planar_i8
 from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
@@ -591,3 +592,123 @@ def test_staged_kernels_refuse_misaligned_inputs(dev):
     with pytest.raises(ValueError):
         fe.composite_feather_planar(planar, dataclasses.replace(
             fml, stage_table=_misaligned(fml.stage_table)))
+
+
+# -- the staged single-class (mat) and multiband warp (pieces) kernels --------
+
+def _mat_case(kind, dev, monkeypatch):
+    """(frames, MatLUT on the card, frame_hw) of a staged K5 case: 'odd' a
+    122x1000 panorama (no multiple of the 32x32 block), 'ragged' 122x998
+    (rows of no multiple of 4 pixels: byte stores), 'edge' taps on the
+    frame's last row and column, 'direct' `_direct_lut`'s blocks of a third
+    camera and over-budget boxes, 'budget' the odd panorama with the
+    staging budget cut to 1,024 bytes, so that its larger boxes go direct."""
+    if kind == "direct":
+        frames, lut, frame_hw = _direct_lut()
+    else:
+        shape = dict(ph=122, pw=998 if kind == "ragged" else 1000)
+        frames, lut = _state("edge" if kind == "edge" else "rot04", **shape)
+        frame_hw = FRAME_HW
+    if kind == "budget":
+        monkeypatch.setattr(staging, "STAGE_BUDGET", 1024)
+    return frames, mat.build_mat_lut(lut.to(dev), frame_hw), frame_hw
+
+
+@pytest.mark.parametrize("B", (1, 3, 32))
+@pytest.mark.parametrize("kind", ("odd", "ragged", "edge", "direct",
+                                  "budget"))
+def test_staged_mat_kernel_matches_plain(dev, kind, B, monkeypatch):
+    frames, ml, frame_hw = _mat_case(kind, dev, monkeypatch)
+    assert ml.n_fallback == 0 and ml.stage_table is not None
+    assert (ml.n_direct > 0) == (kind in ("direct", "budget"))
+    assert bool((ml.stage_table[:, 0, 0] >= 0).any())
+    assert (ml.pano_hw[1] % 4 != 0) == (kind == "ragged")
+    gen = torch.Generator(device=dev).manual_seed(B)
+    planar = torch.randint(-128, 128, (B, 3, 3) + frame_hw, dtype=torch.int8,
+                           device=dev, generator=gen)
+    planar[0] = frames_to_planar_i8(frames.to(dev))
+    before = mat.MAT_BATCHED.launches
+    got = mat.composite_mat_planar_batched(planar, ml)
+    torch.cuda.synchronize()
+    assert mat.MAT_BATCHED.launches == before + 1
+    assert torch.equal(got, mat.composite_mat_plain(planar, ml))
+    assert torch.equal(mat.composite_mat_planar(planar[B - 1], ml),
+                       got[B - 1])
+
+
+def _pieces_case(kind, dev, monkeypatch):
+    """(MatLUT2 of a window stack on the card, pieces, frame_hw) of a staged
+    pieces case: 'windows' the reduced multiband registration with its
+    curvature patch (5 windows of 128 rows; fallback tiles, and direct
+    blocks where the patch's boxes exceed the staging budget); 'ragged' the
+    poisoned map at 122x998 as a stack of 2 windows of 61 rows (a window
+    height of no multiple of 32, so blocks span two windows; rows of no
+    multiple of 4 pixels; a fallback tile at the ragged edge); 'budget' the
+    registration without the patch (no fallback tile) with the staging
+    budget cut to 1,024 bytes, so that its larger boxes go direct."""
+    if kind == "ragged":
+        _, lut = _state("poisoned", ph=122, pw=998)
+        ml = m2.materialize2_used(tiled.build_tiled_lut(lut.to(dev),
+                                                        FRAME_HW))
+        return ml, 2, FRAME_HW
+    if kind == "budget":
+        monkeypatch.setattr(staging, "STAGE_BUDGET", 1024)
+    st, _ = _multiband_state(dev, curved=kind == "windows")
+    return st.warp_lut, len(st.piece_cam), FRAME_HW
+
+
+@pytest.mark.parametrize("B", (1, 3, 8))
+@pytest.mark.parametrize("kind", ("windows", "ragged", "budget"))
+def test_staged_pieces_kernel_matches_plain(dev, kind, B, monkeypatch):
+    ml, pieces, frame_hw = _pieces_case(kind, dev, monkeypatch)
+    Hb, Wb = ml.pano_hw[0] // pieces, ml.pano_hw[1]
+    assert (ml.n_fallback > 0) == (kind != "budget")
+    assert ml.stage_table is not None
+    assert (ml.n_direct > 0) == (kind != "ragged")
+    assert bool((ml.stage_table[:, 0, 0] >= 0).any())
+    assert (Hb % 32 != 0) == (kind == "ragged")
+    assert _fallback_at_ragged_edge(ml) == (kind == "ragged")
+    gen = torch.Generator(device=dev).manual_seed(B)
+    planar = torch.randint(-128, 128, (B, ml.n_cams, 3) + frame_hw,
+                           dtype=torch.int8, device=dev, generator=gen)
+    before = m2.PIECES_BATCHED.launches
+    got = m2.composite_mat2_planar_pieces_batched(planar, ml, pieces)
+    torch.cuda.synchronize()
+    assert m2.PIECES_BATCHED.launches == before + 1
+    assert got.shape == (B, pieces, 3, Hb, Wb) and got.dtype == torch.bfloat16
+    want = m2.composite_mat2_pieces_plain(planar, ml, pieces)
+    assert torch.equal(got, want)
+    if ml.n_fallback:
+        # the fallback tiles' exact values, not the staged path's zeros
+        fb = got.transpose(1, 2).reshape(B, 3, -1)[:, :, ml.fb_pix]
+        assert float(fb.float().max()) > 0
+    assert torch.equal(m2.composite_mat2_planar_pieces(planar[B - 1], ml,
+                                                       pieces), got[B - 1])
+
+
+def test_staged_mat_and_pieces_refuse_what_they_do_not_take(dev):
+    """Misaligned or strided frames, and a state without a staging table,
+    raise on the card; nothing falls back to the plain version."""
+    frames, lut = _state("rot04", ph=122, pw=1000)
+    ml = mat.build_mat_lut(lut.to(dev), FRAME_HW)
+    planar = frames_to_planar_i8(frames.to(dev))
+    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            mat.composite_mat_planar(bad, ml)
+    with pytest.raises(ValueError, match="no staging table"):
+        mat.composite_mat_planar(planar, dataclasses.replace(
+            ml, stage_table=None))
+    with pytest.raises(ValueError):
+        mat.composite_mat_planar(planar, dataclasses.replace(
+            ml, stage_table=_misaligned(ml.stage_table)))
+    st, _ = _multiband_state(dev, curved=True)
+    wl, pieces = st.warp_lut, len(st.piece_cam)
+    planar = torch.zeros((5, 3) + FRAME_HW, dtype=torch.int8, device=dev)
+    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
+                .transpose(2, 3)):
+        with pytest.raises(ValueError):
+            m2.composite_mat2_planar_pieces(bad, wl, pieces)
+    with pytest.raises(ValueError, match="no staging table"):
+        m2.composite_mat2_planar_pieces(planar, dataclasses.replace(
+            wl, stage_table=None), pieces)

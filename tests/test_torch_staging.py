@@ -1,5 +1,6 @@
-"""The staging table of the mat2 and feather kernels (`ops/staging.py`), on
-the reference's fixtures.
+"""The staging table of the staged kernels (`ops/staging.py`): mat2, the
+single-class kernel (mat), the multiband warp stage (pieces, over its window
+stack) and feather, on the reference's fixtures.
 
 The kernels gather their taps from source boxes staged into shared memory
 (`csrc/staging.cuh`); their speed, not their function, depends on the table.
@@ -9,14 +10,18 @@ kernel pixels lies in its block's box for its camera, every box starts on a
 blocks that do not fit are exactly the ones flagged for the direct gather,
 the table changes nothing else in the state, and a numpy model of the
 staged gather (boxes copied one after the other, taps read at the kernels'
-offsets, the separable integer sum) gives the plain version bit for bit."""
+offsets, the separable integer sum, the store into the panorama or into the
+bfloat16 windows) gives the plain version bit for bit."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from stitchingvideo_tpu_torch import Registration
+from stitchingvideo_tpu_torch.blend import multiband_video as tmb
 from stitchingvideo_tpu_torch.ops import composite_feather as tfe
+from stitchingvideo_tpu_torch.ops import composite_mat as tmat
 from stitchingvideo_tpu_torch.ops import composite_mat2 as tmat2
 from stitchingvideo_tpu_torch.ops import staging as stg
 from stitchingvideo_tpu_torch.ops.composite_mat import frames_to_planar_i8
@@ -27,6 +32,9 @@ from tests.test_pallas_feather import _synthetic_blend_lut
 from tests.test_torch_composite import (FRAME_HW, STATES, make_state,
                                         port_mat2, torch_lut)
 from tests.test_torch_feather import FIXTURES, torch_blend
+from tests.test_torch_mat_tiled import CLEAN, port_mat
+from tests.test_torch_multiband import CROP, registration_dict
+from tests.test_torch_multiband import states as multiband_states
 
 INV = np.float32(1.0 / 16129.0)
 
@@ -40,8 +48,8 @@ def feather_state(name: str):
 
 def kernel_taps(ml):
     """(pixel, cam, x0, y0) of every kernel tap set of a state."""
-    fields = [ml.fields()] if isinstance(ml, tmat2.MatLUT2) else \
-        [ml.fields(s) for s in range(2)]
+    fields = [ml.fields(s) for s in range(2)] if hasattr(ml, "gw") else \
+        [ml.fields()]
     out = []
     for f in fields:
         kern = torch.nonzero(f["cam"] >= 0).reshape(-1)
@@ -56,12 +64,23 @@ def block_of(pix, pano_hw):
 
 
 def states():
-    return [("mat2", n) for n in STATES] + \
+    return [("mat2", n) for n in STATES] + [("mat", n) for n in CLEAN] + \
+        [("pieces", k) for k in ("plain", "curved")] + \
         [("feather", n) for n in FIXTURES]
 
 
 def get_state(kind, name):
-    return port_mat2(name) if kind == "mat2" else feather_state(name)[1]
+    """The state of a staged kernel: mat2's and mat's on the reference's
+    composite fixtures (mat's without fallback tiles), the multiband warp
+    stage's over the window stack of tests/test_torch_multiband.py's
+    registrations, feather's on its blend fixtures."""
+    if kind == "mat2":
+        return port_mat2(name)
+    if kind == "mat":
+        return port_mat(name)
+    if kind == "pieces":
+        return multiband_states(name)[1].warp_lut
+    return feather_state(name)[1]
 
 
 @pytest.mark.parametrize("kind,name", states())
@@ -181,34 +200,74 @@ def test_direct_blocks_are_the_ones_that_do_not_fit(monkeypatch):
     assert n_direct == int((n_cams > 0).sum())
 
 
+def window_stack_tlut():
+    """The TiledLUT of the window stack that `build_multiband_state` builds
+    for tests/test_torch_multiband.py's 'curved' registration (fallback
+    tiles included), as it hands it to `materialize2_used`."""
+    seen = []
+
+    def capture(tlut):
+        seen.append(tlut)
+        return tmat2.materialize2_used(tlut)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tmb, "materialize2_used", capture)
+    try:
+        tmb.build_multiband_state(
+            Registration.from_state_dict(registration_dict("curved"),
+                                         device="cpu"), FRAME_HW, crop=CROP)
+    finally:
+        mp.undo()
+    return seen[0]
+
+
 def test_window_stack_state_has_no_table():
-    """`materialize2_used` (the pieces kernel's state, which does not stage)
-    builds no staging table and is otherwise the staged state; the staged
-    kernels refuse a state without a table."""
-    frames, lut = make_state("poisoned")
-    tlut = tmat2.build_tiled_lut(torch_lut(lut), FRAME_HW)
-    full, bare = tmat2._materialize2(tlut), tmat2.materialize2_used(tlut)
-    assert full.stage_table is not None and bare.stage_table is None
-    assert (bare.stage_bytes, bare.n_direct) == (0, 0)
+    """`materialize2_used` (the pieces kernel's state) builds the staging
+    table of its kernel pixels' taps over the window stack's own panorama
+    (the windows stacked along rows), and is otherwise the per-pixel state,
+    which has no table; the staged kernels refuse a state without one."""
+    tlut = window_stack_tlut()
+    full, bare = tmat2.materialize2_used(tlut), tmat2._per_pixel2(tlut)
+    assert full.pano_hw == tlut.pano_hw and full.n_fallback > 0
+    table, stage_bytes, n_direct = stg.staging_table(
+        kernel_taps(full), full.pano_hw, full.frame_hw)
+    assert torch.equal(full.stage_table, table)
+    assert (full.stage_bytes, full.n_direct) == (stage_bytes, n_direct)
+    assert table.shape[0] == int(np.prod(stg.grid_of(tlut.pano_hw)))
+    assert bool((table[:, 0, 0] >= 0).any())          # staged blocks
+    assert bare.stage_table is None and (bare.stage_bytes, bare.n_direct) \
+        == (0, 0)
     for f in dataclasses.fields(full):
         if f.name in ("stage_table", "stage_bytes", "n_direct"):
             continue
         a, b = getattr(full, f.name), getattr(bare, f.name)
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    frames, _lut = make_state("poisoned")
     planar = frames_to_planar_i8(torch.from_numpy(np.asarray(frames)))[None]
     with pytest.raises(ValueError, match="no staging table"):
         tmat2.check_staged(planar, (bare.tap_xy, bare.tap_cw, bare.gc), None)
 
 
-@pytest.mark.parametrize("kind", ("mat2", "feather"))
+@pytest.mark.parametrize("name", CLEAN)
+def test_mat_table_is_mat2s_on_a_clean_lut(name):
+    """Without fallback tiles mat's kernel pixels tap what mat2's tap: the
+    two states have the same staging table."""
+    ml, ml2 = port_mat(name), port_mat2(name)
+    assert ml.n_fallback == 0 and ml.stage_table is not None
+    assert torch.equal(ml.stage_table, ml2.stage_table)
+    assert (ml.stage_bytes, ml.n_direct) == (ml2.stage_bytes, ml2.n_direct)
+
+
+@pytest.mark.parametrize("kind", ("mat2", "mat", "feather"))
 def test_state_fields_unchanged_by_the_table(kind, monkeypatch):
     """The staging table is new state beside the old: every other field of
     the state is what the build gives without it."""
-    if kind == "mat2":
-        _frames, lut = make_state("poisoned")
+    if kind in ("mat2", "mat"):
+        _frames, lut = make_state("poisoned" if kind == "mat2" else "rot04")
+        build_lut = tmat2.build_mat2_lut if kind == "mat2" else \
+            tmat.build_mat_lut
 
         def build():
-            return tmat2.build_mat2_lut(torch_lut(lut), FRAME_HW)
+            return build_lut(torch_lut(lut), FRAME_HW)
         module = tmat2
     else:
         rng = np.random.default_rng(len("fallback"))
@@ -280,24 +339,93 @@ def u8(v):
     return np.clip(np.rint(v), 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("name", ("rot04", "poisoned", "edge"))
-def test_staged_gather_model_is_the_plain_mat2(name):
-    """mat2's staged gather, modelled in numpy with the kernel's float tail
-    ((f32(S) * f32(1/16129) + 128) * gc, each step rounded), equals the
-    plain version on every kernel pixel of a staged block."""
-    frames, _lut = make_state(name)
-    ml = port_mat2(name)
-    batch = np.stack([frames, np.roll(frames, 5, axis=2)])
-    planar = frames_to_planar_i8(torch.from_numpy(batch))
-    want = tmat2.composite_mat2_plain(planar, ml).reshape(2, 3, -1).numpy()
+def model_planes(planar, ml):
+    """The staged kernels' uint8 results of every plane, modelled: on the
+    kernel pixels of staged blocks (f32(S) * f32(1/16129) + 128) * gc, each
+    step rounded, then rounded half to even and clamped; 0 on the other
+    pixels of staged blocks and of blocks without a kernel pixel, which
+    stage nothing. Returns ([B, 3, Hp*Wp] uint8, [Hp*Wp] bool: the pixels
+    modelled, neither fallback pixels nor pixels of direct blocks)."""
+    B = planar.shape[0]
+    npix = ml.tap_cw.numel()
     gc = ml.gc.numpy()
-    for b in range(2):
+    direct = (ml.stage_table[:, 0, 0] == stg.DIRECT).numpy()
+    on = ~direct[block_of(torch.arange(npix), ml.pano_hw).numpy()] \
+        & (ml.tap_cw.numpy() != tmat2.FALLBACK)
+    out = np.zeros((B, 3, npix), np.uint8)
+    for b in range(B):
         for c in range(3):
             p, s = staged_sums(planar.numpy(), ml, ml.tap_xy, ml.tap_cw, b, c)
             v = s.astype(np.float32) * INV
-            got = u8((v + np.float32(128)) * gc[p])
-            np.testing.assert_array_equal(got, want[b, c, p])
-    assert p.size > 0.5 * (ml.tap_cw >= 0).sum()
+            out[b, c, p] = u8((v + np.float32(128)) * gc[p])
+    return out, on
+
+
+def window_store(planes, on, pieces, Hb, Wb):
+    """The pieces kernel's store of modelled planes [B, 3, pieces*Hb*Wb]: a
+    stack pixel p of row y goes to window y // Hb, at p + 2 * (y // Hb) *
+    win of its plane (b, c) at (b * pieces * 3 + c) * win, as bfloat16.
+    Returns ([B, pieces, 3, Hb, Wb] bfloat16, the same-shaped mask of the
+    modelled values)."""
+    B = planes.shape[0]
+    win = Hb * Wb
+    p = np.nonzero(on)[0]
+    at = p + 2 * (p // Wb // Hb) * win
+    out = torch.zeros(B * pieces * 3 * win, dtype=torch.bfloat16)
+    mask = torch.zeros(B * pieces * 3 * win, dtype=torch.bool)
+    for b in range(B):
+        for c in range(3):
+            i = torch.from_numpy((b * pieces * 3 + c) * win + at)
+            out[i] = torch.from_numpy(planes[b, c, p]).to(torch.bfloat16)
+            mask[i] = True
+    shape = (B, pieces, 3, Hb, Wb)
+    return out.reshape(shape), mask.reshape(shape)
+
+
+# mat2's and mat's fixtures, the multiband window stacks, and mat2's
+# 64-row 'poisoned' fixture as a stack of 8 windows of 8 rows (blocks span
+# four windows; fallback tiles)
+MODELLED = [pytest.param("mat2", n, id=n) for n in ("rot04", "poisoned",
+                                                    "edge")] + \
+    [("mat", n) for n in CLEAN] + \
+    [("pieces", k) for k in ("plain", "curved")] + [("pieces8", "poisoned")]
+
+
+@pytest.mark.parametrize("kind,name", MODELLED)
+def test_staged_gather_model_is_the_plain_mat2(kind, name):
+    """The staged gather of mat2, mat and the pieces kernel, modelled in
+    numpy with the kernel's float tail, equals the plain version on every
+    pixel it models; for the pieces kernel the model stores into the
+    bfloat16 window layout and is held against
+    `composite_mat2_pieces_plain` bit for bit."""
+    if kind == "pieces":
+        rng = np.random.default_rng(7)
+        ml = multiband_states(name)[1].warp_lut
+        pieces = len(multiband_states(name)[1].piece_cam)
+        batch = rng.integers(0, 256, (2, 3) + ml.frame_hw + (3,), np.uint8)
+    else:
+        frames, _lut = make_state(name)
+        ml = port_mat(name) if kind == "mat" else port_mat2(name)
+        pieces = 8 if kind == "pieces8" else 0
+        batch = np.stack([frames, np.roll(frames, 5, axis=2)])
+    planar = frames_to_planar_i8(torch.from_numpy(batch))
+    planes, on = model_planes(planar, ml)
+    kern = ml.tap_cw.numpy() >= 0
+    assert on[kern].mean() > 0.5
+    if not pieces:
+        plain = tmat.composite_mat_plain if kind == "mat" else \
+            tmat2.composite_mat2_plain
+        want = plain(planar, ml).reshape(2, 3, -1).numpy()
+        np.testing.assert_array_equal(planes[:, :, on], want[:, :, on])
+        return
+    Hb, Wb = ml.pano_hw[0] // pieces, ml.pano_hw[1]
+    assert (Hb % stg.BLOCK_H != 0) == (kind == "pieces8")
+    got, mask = window_store(planes, on, pieces, Hb, Wb)
+    want = tmat2.composite_mat2_pieces_plain(planar, ml, pieces)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got[mask], want[mask])
+    assert bool((want[mask] > 0).any())
+    assert (ml.n_fallback > 0) == (name in ("curved", "poisoned"))
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))
