@@ -51,7 +51,15 @@ What it does, in phases (any failure exits non-zero):
   staging table (the source boxes their kernels stage into shared memory)
   from its taps, time it, and print its direct-gather blocks, its bytes a
   stage and the blocks an SM holds.
-  10. times: each kernel's time beside its bound, its plain version's and,
+  10. registration (`register_images`): the port's `utils/synthetic.py`
+     renders a 360-degree ring of 5 cameras (72 degrees apart, fov 90) at
+     the work scale of a 1080p frame (1033x581) on the card; the default
+     config registers it, each stage timed cold and warm (median of 3); it
+     must keep all 5 cameras, find the focal within 3% and every relative
+     rotation within 1 degree (the reference's own gates); and a reduced
+     scene (3 cameras, 320x240) registered on the card and on the CPU must
+     agree within the slice tests' tolerance. No kernel of its own.
+  11. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
@@ -143,6 +151,72 @@ def synthetic_lut(seed: int, poison: bool, frame_hw=FRAME_HW,
     return (cam, np.broadcast_to(src_x, (pano_h, pano_w)).astype(np.float32),
             np.ascontiguousarray(src_y, np.float32),
             np.broadcast_to(gain, (pano_h, pano_w)).astype(np.float32))
+
+
+# -- the registration scene ---------------------------------------------------
+
+# the product rig: 5 cameras in a closed 360-degree yaw ring, 72 degrees
+# apart, fov 90, at the work scale of a 1920x1080 frame (0.6 megapixels)
+REG_CAMS, REG_FOV, REG_OVERLAP, WORK_MEGAPIX = 5, 90.0, 0.2, 0.6
+# a texture the views sample near 1:1: 2 pi f columns, pi f rows (f = 516.5
+# px a radian at the work scale), with the reference's blob density
+REG_TEX_HW, REG_BLOBS = (1624, 3248), 10000
+# the reduced scene held card against CPU (the slice tests' sizes and config)
+SMALL_SCENE = dict(n=3, img_wh=(320, 240), fov_deg=55.0, overlap_frac=0.4,
+                   tex_hw=(768, 2048), blobs=3000)
+
+
+# a fresh process's first forward-mode derivative, on the card: its seconds
+# and the modules it imports
+FIRST_FORWARD_AD = """
+import json, sys, time, torch
+import torch.autograd.forward_ad as fwAD
+x = torch.ones(4, device="cuda")
+torch.cuda.synchronize()
+before = len(sys.modules)
+t = time.perf_counter()
+with fwAD.dual_level():
+    y = fwAD.make_dual(x, torch.ones_like(x)) * torch.ones_like(x)
+    fwAD.unpack_dual(y).tangent.sum().item()
+print(json.dumps({"s": time.perf_counter() - t,
+                  "modules_imported": len(sys.modules) - before}))
+"""
+
+
+def work_wh(frame_hw=FRAME_HW, megapix: float = WORK_MEGAPIX):
+    """A frame's (w, h) at the registration's work scale (the reference
+    stitcher's `_scale_for`, `models/stitcher.py:87-91`)."""
+    h, w = frame_hw
+    s = min(1.0, float(np.sqrt(megapix * 1e6 / (w * h))))
+    return max(1, round(w * s)), max(1, round(h * s))
+
+
+def registration_scene(seed: int, device, n=REG_CAMS, img_wh=None,
+                       fov_deg=REG_FOV, overlap_frac=REG_OVERLAP,
+                       tex_hw=REG_TEX_HW, blobs=REG_BLOBS):
+    """(views, K, Rs, focal) of the synthetic ring, rendered by the port's
+    `utils/synthetic.py` on `device`."""
+    from stitchingvideo_tpu_torch.utils import synthetic as syn
+    img_wh = img_wh or work_wh()
+    tex = syn.panorama_texture(np.random.default_rng(seed + 7), *tex_hw,
+                               blobs=blobs)
+    K, Rs, f = syn.yaw_cameras(n, fov_deg, img_wh, overlap_frac, seed=seed)
+    return syn.render_views(tex, K, Rs, img_wh, device=device), K, Rs, f
+
+
+def rotation_errors_deg(R_est, R_true) -> list:
+    """Angle (degrees, float64) between each estimated and true relative
+    rotation R_a R_b^T, a < b."""
+    R_est = np.asarray(R_est, np.float64)
+    R_true = np.asarray(R_true, np.float64)
+    out = []
+    for a in range(len(R_est)):
+        for b in range(a + 1, len(R_est)):
+            d = (R_est[a] @ R_est[b].T) @ (R_true[a] @ R_true[b].T).T
+            sin = np.linalg.norm(d - d.T) / (2 * np.sqrt(2))
+            out.append(float(np.degrees(np.arctan2(sin,
+                                                   (np.trace(d) - 1) / 2))))
+    return out
 
 
 def feather_registration(seed: int, frame_hw=FRAME_HW, step: int = 1400,
@@ -1186,6 +1260,108 @@ def phase_probe(C):
     return rows, metrics
 
 
+def phase_registration(C):
+    """register_images on the work-scale 5-camera ring: stage times cold
+    and warm, the reference's gates, and card against CPU on the reduced
+    scene."""
+    torch, dev = C.torch, C.dev
+    from stitchingvideo_tpu_torch.register import pipeline as rp
+    cfg = C.StitchConfig()
+    t0 = time.perf_counter()
+    views, _K, Rs_true, f_true = registration_scene(C.seed, dev)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+
+    def stages():
+        times = []
+        t = time.perf_counter()
+        feats = rp.compute_features(views, cfg, dev)
+        times.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        pairs = rp.match_all_pairs(feats, cfg, C.seed, dev)
+        times.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        reg = rp.estimate_cameras(feats, pairs, cfg, dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return feats, reg, times
+
+    feats, reg, cold = stages()
+    warm = [stages()[2] for _ in range(3)]
+    # what the first forward-mode derivative in a process costs on this host
+    # (PyTorch imports its forward-AD decompositions then): the bundle
+    # adjustment's Jacobian pays it in the cold estimate_cameras
+    probe = subprocess.run([sys.executable, "-c", FIRST_FORWARD_AD],
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        fail(f"the forward-AD probe failed: {probe.stderr.strip()}")
+    first_ad = json.loads(probe.stdout)
+    names = ("find_features", "pairwise_matching", "estimate_cameras")
+    stage_s = {n: {"cold_s": cold[k],
+                   "warm_s": float(np.median([w[k] for w in warm]))}
+               for k, n in enumerate(names)}
+    if reg.cameras.focal.device.type != "cuda":
+        fail("register_images did not return cameras on the card")
+    focals = reg.cameras.focal.cpu().numpy()
+    R_est = reg.cameras.R.cpu().numpy()
+    if reg.indices != list(range(REG_CAMS)):
+        fail(f"registration kept cameras {reg.indices}, not all {REG_CAMS}")
+    focal_err = np.abs(focals - f_true) / f_true
+    rot_err = rotation_errors_deg(R_est, Rs_true)
+    if not np.all(np.isfinite(focals)) or focal_err.max() > 0.03:
+        fail(f"registration focals {focals} are not within 3% of {f_true}")
+    if max(rot_err) >= 1.0:
+        fail(f"a relative rotation is {max(rot_err):.3f} degrees off")
+    metrics = {
+        "views": [REG_CAMS, *work_wh()[::-1], 3], "scene_s": scene_s,
+        "texture_hw": list(REG_TEX_HW), "stages": stage_s,
+        "keypoints": [int(f["valid"].sum()) for f in feats],
+        "pairs": {f"{i}-{j}": [nm, ni] for (i, j), (nm, ni, _c)
+                  in reg.pair_stats.items()},
+        "first_forward_ad": first_ad,
+        "kept": reg.indices, "focal_true": f_true,
+        "focals": focals.tolist(), "focal_rel_err_max": float(focal_err.max()),
+        "rotation_err_deg_max": max(rot_err)}
+    print("registration: " + ", ".join(
+        f"{n} {v['cold_s']:.3f} s cold / {v['warm_s']:.3f} s warm"
+        for n, v in stage_s.items()) + f"; kept {reg.indices}, focal error "
+        f"<= {100 * focal_err.max():.3f}%, rotations <= {max(rot_err):.4f} "
+        f"deg; a fresh process's first forward-mode derivative "
+        f"{first_ad['s']:.3f} s ({first_ad['modules_imported']} modules "
+        "imported)", flush=True)
+
+    # the reduced scene on the card and on the CPU, the same RANSAC draws
+    small_views = registration_scene(C.seed, "cpu", **SMALL_SCENE)[0]
+    small = cfg.replace(
+        features=dataclasses.replace(cfg.features, max_keypoints=256),
+        match=dataclasses.replace(cfg.match, max_matches=128,
+                                  ransac_iters=64),
+        register=dataclasses.replace(cfg.register, ba_iters=10))
+    on = {d: rp.register_images(small_views, small, C.seed, device=d)
+          for d in (dev, "cpu")}
+    card, cpu = on[dev], on["cpu"]
+    f_card = card.cameras.focal.cpu().numpy()
+    f_cpu = cpu.cameras.focal.numpy()
+    rel_rot = rotation_errors_deg(card.cameras.R.cpu().numpy(),
+                                  cpu.cameras.R.numpy())
+    d_inl = max(abs(card.pair_stats[p][1] - cpu.pair_stats[p][1])
+                for p in cpu.pair_stats)
+    d_match = max(abs(card.pair_stats[p][0] - cpu.pair_stats[p][0])
+                  for p in cpu.pair_stats)
+    metrics["card_vs_cpu"] = {
+        "kept": [card.indices, cpu.indices],
+        "focal_rel_diff_max": float(np.max(np.abs(f_card - f_cpu) / f_cpu)),
+        "rotation_diff_deg_max": max(rel_rot), "inliers_diff_max": d_inl,
+        "matches_diff_max": d_match}
+    print(f"registration card vs CPU (3 x 320x240): {metrics['card_vs_cpu']}",
+          flush=True)
+    if card.indices != cpu.indices or len(cpu.indices) != 3 \
+            or metrics["card_vs_cpu"]["focal_rel_diff_max"] > 1e-3 \
+            or max(rel_rot) >= 0.05 or d_inl > 2:
+        fail("registration on the card misses the CPU's tolerance")
+    return [], metrics
+
+
 # -- the staged kernels against other sources of theirs ----------------------
 
 # each staged entry point: its source's stem, its pointer and int arguments
@@ -1393,7 +1569,8 @@ def main() -> None:
     rows, metrics = [], {"card": card, "kind": kind, "build_s": build_s}
     phases = (("mat2", phase_mat2), ("mat", phase_mat),
               ("tiled", phase_tiled), ("feather", phase_feather),
-              ("multiband", phase_multiband), ("window_probe", phase_probe))
+              ("multiband", phase_multiband), ("window_probe", phase_probe),
+              ("registration", phase_registration))
     if args.ab:
         phases = (("ab", lambda C: phase_ab(C, args.ab)),)
     for name, phase in phases:

@@ -362,7 +362,8 @@ def _composite(planar_b: torch.Tensor, ml: FeatherMatLUT,
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
-    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gw), ml.stage_table)
+    planar_b = check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gw),
+                            ml.stage_table)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp, Wp), dtype=torch.uint8,

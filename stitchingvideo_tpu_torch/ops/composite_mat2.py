@@ -317,26 +317,33 @@ def check_frames(planar_b: torch.Tensor, ml) -> None:
         raise ValueError(f"the LUT addresses {ml.n_cams} cameras, got {N}")
     if planar_b.device != ml.device:
         raise ValueError(f"frames on {planar_b.device}, LUT on {ml.device}")
-    if not planar_b.is_contiguous():
-        raise ValueError("frames must be contiguous")
 
 
 def check_staged(planar_b: torch.Tensor, state: Tuple[torch.Tensor, ...],
-                 table: torch.Tensor) -> None:
-    """Raise unless the staged kernels take these frames, state tensors and
-    staging table: all contiguous; the frames (for the 16-byte copies of
-    their rows) and the table (read a slot at a time) 16-byte aligned; one
-    frame set and the panorama indexable in int32."""
+                 table: torch.Tensor) -> torch.Tensor:
+    """The frames as the staged kernels take them, after checking the state
+    tensors and the staging table: frames that are not contiguous or not
+    16-byte aligned (the kernels copy their rows 16 bytes at a time) come
+    back as a fresh contiguous copy, which the caching allocator aligns. The
+    state must be contiguous and the table (read a slot at a time) 16-byte
+    aligned; one frame set and the panorama must be indexable in int32."""
     N, _, H, W = planar_b.shape[1:]
     if N * 3 * H * W >= 1 << 31 or state[0].shape[-1] >= 1 << 31:
         raise ValueError(f"a frame set of {N}x3x{H}x{W} or its panorama is "
                          "too large for int32 offsets")
     if table is None:
         raise ValueError("the state has no staging table")
-    if not all(t.is_contiguous() for t in (planar_b, table) + tuple(state)):
-        raise ValueError("frames and state must be contiguous")
-    if planar_b.data_ptr() % 16 or table.data_ptr() % 16:
-        raise ValueError("frames and staging table must be 16-byte aligned")
+    if not all(t.is_contiguous() for t in (table,) + tuple(state)):
+        raise ValueError("the state and its staging table must be "
+                         "contiguous")
+    if table.data_ptr() % 16:
+        raise ValueError("the staging table must be 16-byte aligned")
+    if not planar_b.is_contiguous() or planar_b.data_ptr() % 16:
+        planar_b = planar_b.clone(memory_format=torch.contiguous_format)
+        if planar_b.data_ptr() % 16:
+            raise RuntimeError("the allocator returned frames that are not "
+                               "16-byte aligned")
+    return planar_b
 
 
 def _composite(planar_b: torch.Tensor, ml: MatLUT2,
@@ -346,7 +353,8 @@ def _composite(planar_b: torch.Tensor, ml: MatLUT2,
     if planar_b.device.type != "cuda":
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
-    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc), ml.stage_table)
+    planar_b = check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc),
+                            ml.stage_table)
     B, N, _, H, W = planar_b.shape
     Hp, Wp = ml.pano_hw
     out = torch.empty((B, 3, Hp * Wp), dtype=torch.uint8,
@@ -406,7 +414,8 @@ def _composite_pieces(planar_b: torch.Tensor, ml: MatLUT2, pieces: int,
         raise ValueError(f"no kernel for device {planar_b.device}")
     check_frames(planar_b, ml)
     Hb, Wb = _window_hw(ml, pieces)
-    check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc), ml.stage_table)
+    planar_b = check_staged(planar_b, (ml.tap_xy, ml.tap_cw, ml.gc),
+                            ml.stage_table)
     B, N, _, H, W = planar_b.shape
     out = torch.empty((B, pieces, 3, Hb, Wb), dtype=torch.bfloat16,
                       device=planar_b.device)

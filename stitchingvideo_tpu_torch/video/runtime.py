@@ -9,8 +9,9 @@ assignment under a lock, and the output canvas is frozen to the first
 registration's shape.
 
 Still to port, each raising `NotImplementedError` with its ROADMAP.md item:
-registration itself (`register`, items 9-15, and `run` with its
-re-registration thread, item 15), the full blend that feather and multiband
+the stitcher's registration (`register`, items 13-15: `register_images`
+gives the cameras, the seams and gains are still to come; and `run` with
+its re-registration thread, item 15), the full blend that feather and multiband
 fall back to without a kernel state (item 19) and canvas sharding (item 22).
 """
 from __future__ import annotations
@@ -103,6 +104,9 @@ class VideoStitcher:
         self.device = resolve_device(device, "VideoStitcher")
         self.cfg = cfg
         self._lock = threading.Lock()
+        # serialises state builds and swaps (install_lut,
+        # build_multiband_state); composite() never takes it
+        self._install_lock = threading.Lock()
         self._lut: Optional[CompositeLUT] = None
         # seam-select kernel state: (kind, state) with kind 'mat2' | 'mat' |
         # 'tiled', or None for the plain gather
@@ -120,9 +124,11 @@ class VideoStitcher:
     # -- slow path -----------------------------------------------------
     def register(self, frames, seed: int = 0) -> None:
         raise NotImplementedError(
-            "registration is not ported yet "
-            f"({_ROADMAP}, items 9-15): load a registration the JAX package "
-            "saved (load_registration) or install a LUT (install_lut)")
+            "the stitcher's registration (seams, exposure and the runtime's "
+            f"slow path) is not ported yet ({_ROADMAP}, items 13-15): "
+            "register_images gives the cameras; load a registration the JAX "
+            "package saved (load_registration) or install a LUT "
+            "(install_lut)")
 
     def run(self, *args, **kwargs):
         raise NotImplementedError(
@@ -142,27 +148,33 @@ class VideoStitcher:
         lut = lut.to(self.device)
         frame_hw = tuple(int(x) for x in frame_hw)
         mode = self.cfg.video.compose_mode
-        with self._lock:
-            out_shape = self._out_shape or lut.shape
+        with self._install_lock:
+            with self._lock:
+                out_shape = self._out_shape or lut.shape
             if lut.shape != out_shape:
                 lut = self._fit_lut(lut, out_shape)
-            # the feather and multiband hot loops never run the seam-select
-            # kernel
-            tlut = self._build_tiled(lut, frame_hw) if mode == "lut" else None
+            # the feather and multiband states build outside the lock that
+            # composite() takes, so it serves the previous state meanwhile
             ftlut = (self._build_feather(reg, frame_hw, out_shape)
                      if mode == "feather" and reg is not None else None)
             mbtlut = (self._build_multiband(reg, frame_hw)
                       if mode == "multiband" and reg is not None else None)
-            self._out_shape = out_shape
-            if reg is not None:
-                self._reg = reg
-            self._frame_hw = frame_hw
-            self._lut, self._tlut = lut, tlut
-            if ftlut is not None:
-                self._ftlut, self._ftlut_reg = ftlut, reg
-            if mbtlut is not None:
-                self._mbtlut, self._mbtlut_reg = mbtlut, reg
-            self.registrations += 1
+            with self._lock:
+                # the feather and multiband hot loops never run the
+                # seam-select kernel; its build stays under the lock, as the
+                # reference's does
+                tlut = self._build_tiled(lut, frame_hw) if mode == "lut" \
+                    else None
+                self._out_shape = out_shape
+                if reg is not None:
+                    self._reg = reg
+                self._frame_hw = frame_hw
+                self._lut, self._tlut = lut, tlut
+                if ftlut is not None:
+                    self._ftlut, self._ftlut_reg = ftlut, reg
+                if mbtlut is not None:
+                    self._mbtlut, self._mbtlut_reg = mbtlut, reg
+                self.registrations += 1
 
     def _build_tiled(self, lut: CompositeLUT, frame_hw):
         """The seam-select kernel state of cfg.video.kernel: 'auto' and
@@ -203,13 +215,15 @@ class VideoStitcher:
         """Build and swap in the multiband state of the live registration.
         Returns False with no registration; a build that fails raises and
         the previous state stays live."""
-        with self._lock:
-            reg = self._reg
-        if reg is None:
-            return False
-        mbtlut = self._build_multiband(reg, tuple(int(x) for x in frame_hw))
-        with self._lock:
-            self._mbtlut, self._mbtlut_reg = mbtlut, reg
+        with self._install_lock:
+            with self._lock:
+                reg = self._reg
+            if reg is None:
+                return False
+            mbtlut = self._build_multiband(reg,
+                                           tuple(int(x) for x in frame_hw))
+            with self._lock:
+                self._mbtlut, self._mbtlut_reg = mbtlut, reg
         return True
 
     def _blend_lut(self, reg: Registration, out_shape) -> BlendLUT:

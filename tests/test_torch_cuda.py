@@ -126,9 +126,6 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     planar = frames_to_planar_i8(frames.to(dev))
     with pytest.raises(ValueError):
         m2.composite_mat2_planar(planar.cpu(), ml)   # LUT on another device
-    with pytest.raises(ValueError):
-        m2.composite_mat2_planar(planar.transpose(2, 3).contiguous()
-                                 .transpose(2, 3), ml)   # not contiguous
 
 
 # panorama sizes that are no multiple of the 8x128 tile; "rot04" leaves an
@@ -569,29 +566,53 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def test_staged_kernels_refuse_misaligned_inputs(dev):
-    frames, ml, _ = _mat2_case("odd", dev)
-    planar = frames_to_planar_i8(frames.to(dev))
-    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
-                .transpose(2, 3)):
-        with pytest.raises(ValueError):
-            m2.composite_mat2_planar(bad, ml)
-    with pytest.raises(ValueError):
-        m2.composite_mat2_planar(planar, dataclasses.replace(
-            ml, stage_table=_misaligned(ml.stage_table)))
-    with pytest.raises(ValueError):
-        m2.composite_mat2_planar(planar, dataclasses.replace(
-            ml, gc=torch.stack([ml.gc, ml.gc], 1)[:, 0]))   # strided
-    frames, blut = _blend_state()
-    fml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
-    planar = frames_to_planar_i8(frames.to(dev))
-    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
-                .transpose(2, 3)):
-        with pytest.raises(ValueError):
-            fe.composite_feather_planar(bad, fml)
-    with pytest.raises(ValueError):
-        fe.composite_feather_planar(planar, dataclasses.replace(
-            fml, stage_table=_misaligned(fml.stage_table)))
+def _awkward(planar: torch.Tensor):
+    """The frames one byte past a 16-byte boundary, and as a view that is
+    not contiguous."""
+    return {"misaligned": _misaligned(planar),
+            "strided": planar.transpose(-2, -1).contiguous()
+                             .transpose(-2, -1)}
+
+
+@pytest.mark.parametrize("kernel", ("mat2", "mat", "pieces", "feather"))
+def test_staged_kernels_take_misaligned_inputs(dev, kernel):
+    """Frames that are not contiguous or not 16-byte aligned give what
+    their aligned copy gives (the wrapper copies them before the launch);
+    a frame set past the int32 offsets still raises."""
+    if kernel == "pieces":
+        st, _ = _multiband_state(dev, curved=True)
+        ml, pieces = st.warp_lut, len(st.piece_cam)
+        frame_hw, n = FRAME_HW, ml.n_cams
+        run = lambda x: m2.composite_mat2_planar_pieces_batched(x, ml,
+                                                                pieces)
+        state = (ml.tap_xy, ml.tap_cw, ml.gc)
+    elif kernel == "feather":
+        _, blut = _blend_state()
+        ml = fe.build_feather_mat(blut.to(dev), FRAME_HW)
+        frame_hw, n = FRAME_HW, 3
+        run = lambda x: fe.composite_feather_planar_batched(x, ml)
+        state = (ml.tap_xy, ml.tap_cw, ml.gw)
+    else:
+        _, ml, frame_hw = _mat2_case("odd", dev)
+        if kernel == "mat":
+            _, lut = _state("rot04", ph=122, pw=1000)
+            ml = mat.build_mat_lut(lut.to(dev), FRAME_HW)
+        n = 3
+        run = (lambda x: mat.composite_mat_planar_batched(x, ml)) \
+            if kernel == "mat" \
+            else (lambda x: m2.composite_mat2_planar_batched(x, ml))
+        state = (ml.tap_xy, ml.tap_cw, ml.gc)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    planar = torch.randint(-128, 128, (3, n, 3) + tuple(frame_hw),
+                           dtype=torch.int8, device=dev, generator=gen)
+    want = run(planar)
+    for name, bad in _awkward(planar).items():
+        assert torch.equal(bad, planar), name
+        assert torch.equal(run(bad), want), name
+    big = torch.zeros((), dtype=torch.int8, device=dev).expand(
+        1, n, 3, 32768, 32768)                      # no memory behind it
+    with pytest.raises(ValueError, match="int32"):
+        m2.check_staged(big, state, ml.stage_table)
 
 
 # -- the staged single-class (mat) and multiband warp (pieces) kernels --------
@@ -687,15 +708,11 @@ def test_staged_pieces_kernel_matches_plain(dev, kind, B, monkeypatch):
 
 
 def test_staged_mat_and_pieces_refuse_what_they_do_not_take(dev):
-    """Misaligned or strided frames, and a state without a staging table,
-    raise on the card; nothing falls back to the plain version."""
+    """A state without a staging table, or with a misaligned one, raises
+    on the card; nothing falls back to the plain version."""
     frames, lut = _state("rot04", ph=122, pw=1000)
     ml = mat.build_mat_lut(lut.to(dev), FRAME_HW)
     planar = frames_to_planar_i8(frames.to(dev))
-    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
-                .transpose(2, 3)):
-        with pytest.raises(ValueError):
-            mat.composite_mat_planar(bad, ml)
     with pytest.raises(ValueError, match="no staging table"):
         mat.composite_mat_planar(planar, dataclasses.replace(
             ml, stage_table=None))
@@ -705,10 +722,82 @@ def test_staged_mat_and_pieces_refuse_what_they_do_not_take(dev):
     st, _ = _multiband_state(dev, curved=True)
     wl, pieces = st.warp_lut, len(st.piece_cam)
     planar = torch.zeros((5, 3) + FRAME_HW, dtype=torch.int8, device=dev)
-    for bad in (_misaligned(planar), planar.transpose(2, 3).contiguous()
-                .transpose(2, 3)):
-        with pytest.raises(ValueError):
-            m2.composite_mat2_planar_pieces(bad, wl, pieces)
     with pytest.raises(ValueError, match="no staging table"):
         m2.composite_mat2_planar_pieces(planar, dataclasses.replace(
             wl, stage_table=None), pieces)
+
+
+# -- registration (plain PyTorch on the card): the card against the CPU ------
+
+def _views(n=2, wh=(320, 240)):
+    from stitchingvideo_tpu_torch.utils import synthetic as syn
+    K, Rs, _f = syn.yaw_cameras(n, 55.0, wh, 0.45)
+    tex = syn.panorama_texture(np.random.default_rng(3))
+    return syn.render_views(tex, K, Rs, wh, device="cpu")
+
+
+def test_ransac_uniforms_are_the_same_on_the_card(dev):
+    from stitchingvideo_tpu_torch.ops import ransac
+    u = ransac.ransac_uniforms(5, 3, 64, dev)
+    assert u.device.type == "cuda"
+    assert torch.equal(u.cpu(), ransac.ransac_uniforms(5, 3, 64, "cpu"))
+
+
+def test_features_on_the_card_are_the_cpus(dev):
+    """The detector's keypoints and responses are equal (FAST, Harris and
+    the top-k use IEEE arithmetic and a stable sort); orientations within
+    1e-5 (the card's atan2), descriptor bits at least 99.9% equal."""
+    from stitchingvideo_tpu_torch.ops import features
+    v = np.stack(_views()).astype(np.float32)
+    g = torch.from_numpy(np.round(v[..., 0] * 0.299 + v[..., 1] * 0.587
+                                  + v[..., 2] * 0.114).astype(np.float32))
+    cpu = features.detect_and_describe(g, 20.0, 256, extent=(240, 320))
+    card = features.detect_and_describe(g.to(dev), 20.0, 256,
+                                        extent=(240, 320))
+    for k in ("xy", "valid", "response"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    assert float((card["angle"].cpu() - cpu["angle"]).abs().max()) <= 1e-5
+    assert float((card["desc"].cpu() == cpu["desc"]).float().mean()) >= 0.999
+
+
+def test_matching_and_ransac_on_the_card_are_the_cpus(dev):
+    """From the same descriptors and draws: matches equal, homographies
+    within 1e-4 relative, inlier counts within 2."""
+    from stitchingvideo_tpu_torch.ops import features, matching, ransac
+    v = np.stack(_views()).astype(np.float32)
+    g = torch.from_numpy(np.round(v[..., 0] * 0.299 + v[..., 1] * 0.587
+                                  + v[..., 2] * 0.114).astype(np.float32))
+    f = features.detect_and_describe(g, 20.0, 256)
+    out = {}
+    for d in ("cpu", dev):
+        src, dst, dist, valid = matching.match_pair(
+            f["desc"][0].to(d), f["valid"][0].to(d), f["desc"][1].to(d),
+            f["valid"][1].to(d), 0.3, 128)
+        p1 = f["xy"][0].to(d)[src] - 160.0
+        p2 = f["xy"][1].to(d)[dst] - 120.0
+        r = ransac.ransac_homography(ransac.ransac_uniforms(0, 1, 64, d)[0],
+                                     p1, p2, valid, 3.0)
+        out[str(d)] = [t.cpu() for t in (src, dst, dist, valid)] + [r]
+    a, b = out["cpu"], out[str(dev)]
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)
+    assert int(a[3].sum()) > 10 and bool(b[4]["ok"])
+    Ha, Hb = a[4]["H"].double(), b[4]["H"].cpu().double()
+    Ha, Hb = Ha / Ha[2, 2], Hb / Hb[2, 2]
+    assert float((Ha - Hb).abs().max()) <= 1e-4 * float(Ha.abs().max())
+    assert abs(int(a[4]["num_inliers"]) - int(b[4]["num_inliers"])) <= 2
+
+
+def test_register_images_runs_on_the_card(dev):
+    """The whole slice on the card, by default (no device argument)."""
+    from stitchingvideo_tpu_torch import register_images
+    cfg = StitchConfig()
+    cfg = cfg.replace(features=dataclasses.replace(cfg.features,
+                                                   max_keypoints=256),
+                      match=dataclasses.replace(cfg.match, max_matches=128,
+                                                ransac_iters=64),
+                      register=dataclasses.replace(cfg.register, ba_iters=10))
+    reg = register_images(_views(3), cfg)
+    assert reg.cameras.focal.device.type == "cuda"
+    assert reg.indices == [0, 1, 2]
+    assert bool(torch.isfinite(reg.cameras.R).all())

@@ -136,11 +136,28 @@ def test_port_imports_no_jax():
             "stitchingvideo_tpu_torch.ops.pyramid_planar",
             "stitchingvideo_tpu_torch.ops.window_probe",
             "stitchingvideo_tpu_torch.blend.multiband",
-            "stitchingvideo_tpu_torch.blend.multiband_video"]
+            "stitchingvideo_tpu_torch.blend.multiband_video",
+            "stitchingvideo_tpu_torch.geometry.rotation",
+            "stitchingvideo_tpu_torch.geometry.projections",
+            "stitchingvideo_tpu_torch.geometry.autocalib",
+            "stitchingvideo_tpu_torch.ops.fma",
+            "stitchingvideo_tpu_torch.ops.color",
+            "stitchingvideo_tpu_torch.ops.filters",
+            "stitchingvideo_tpu_torch.ops.features",
+            "stitchingvideo_tpu_torch.ops.matching",
+            "stitchingvideo_tpu_torch.ops.homography",
+            "stitchingvideo_tpu_torch.ops.ransac",
+            "stitchingvideo_tpu_torch.ops.remap",
+            "stitchingvideo_tpu_torch.register.graph",
+            "stitchingvideo_tpu_torch.register.estimator",
+            "stitchingvideo_tpu_torch.register.bundle",
+            "stitchingvideo_tpu_torch.register.wave",
+            "stitchingvideo_tpu_torch.register.pipeline",
+            "stitchingvideo_tpu_torch.utils.synthetic"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'stitchingvideo_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'cv2', 'stitchingvideo_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

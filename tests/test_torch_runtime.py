@@ -4,6 +4,7 @@ seam-select mode with each of its kernels (mat2, mat, tiled) and in the
 feather mode; in the multiband mode within a stated tolerance."""
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -432,9 +433,66 @@ def test_feather_needs_a_registration(saved):
 
 def test_registration_is_a_later_slice():
     vs = VideoStitcher(device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9-15"):
+    with pytest.raises(NotImplementedError, match="items 13-15"):
         vs.register(_frames(8))
     with pytest.raises(NotImplementedError, match="item 15"):
         vs.run(None)
     with pytest.raises(RuntimeError, match="not registered"):
         vs.composite(_frames(8))
+
+
+@pytest.mark.parametrize("mode", ["feather", "multiband"])
+def test_composite_is_served_during_a_state_build(saved, mode, monkeypatch):
+    """A feather or multiband state builds outside the lock that
+    composite() takes: while a new build waits, composite() on another
+    thread returns the previous state's output; released, the new state is
+    live."""
+    cfg = _cfg(**MODES[mode])
+    vs = VideoStitcher(cfg, device="cpu")
+    vs.load_registration(saved["full"])
+    frames = _frames(21)
+    before = vs.composite(frames)
+    reg = Registration.from_state_dict(make_registration_dict(seed=9),
+                                       device="cpu")
+    lut = build_lut(reg)
+    ref = VideoStitcher(cfg, device="cpu")      # the same two installs
+    ref.load_registration(saved["full"])
+    ref.install_lut(lut, FRAME_HW, reg=reg)
+    want = ref.composite(frames)
+    assert not np.array_equal(want, before)
+
+    started, release = threading.Event(), threading.Event()
+    name = "_build_feather" if mode == "feather" else "_build_multiband"
+    build = getattr(VideoStitcher, name)
+
+    def waiting_build(self, *args):
+        started.set()
+        assert release.wait(60)
+        return build(self, *args)
+
+    monkeypatch.setattr(VideoStitcher, name, waiting_build)
+    errors, served = [], []
+
+    def install():
+        try:
+            vs.install_lut(lut, FRAME_HW, reg=reg)
+        except Exception as e:          # surfaced by the assert below
+            errors.append(e)
+
+    installer = threading.Thread(target=install)
+    installer.start()
+    try:
+        assert started.wait(30)
+        reader = threading.Thread(
+            target=lambda: served.append(vs.composite(frames)))
+        reader.start()
+        reader.join(timeout=30)
+        assert not reader.is_alive(), "composite() waited for the build"
+        np.testing.assert_array_equal(served[0], before)
+    finally:
+        release.set()
+        installer.join(timeout=60)
+    assert not installer.is_alive() and not errors, errors
+    assert vs.registrations == 2
+    assert (vs._ftlut_reg if mode == "feather" else vs._mbtlut_reg) is reg
+    np.testing.assert_array_equal(vs.composite(frames), want)
