@@ -76,7 +76,27 @@ What it does, in phases (any failure exits non-zero):
      with one forced re-registration delivers every frame in order, with
      the frame times during and outside the re-registration; and the
      reduced scene registered on the card and on the CPU must agree.
-  12. times: each kernel's time beside its bound, its plain version's and,
+  12. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
+     stitcher phase's 5 x 1080p views through `Stitcher(StitchConfig())
+     .stitch` (the OpenCV-faithful path: work-scale registration, block
+     gains, graph-cut seams, the int16 multiband blender at full
+     resolution), cold and twice warm, every span timed; `compose_panorama`
+     on `estimate_transform`'s Registration for the multiband and feather
+     blends; `VideoStitcher.composite` in feather mode with no feather
+     state (the full blend) beside the feather kernel's on the same
+     registration; gates: all 5 cameras kept, the panorama within one wrap
+     plus a view, most of it covered and not black (the reference's own),
+     every camera owning canvas pixels, every warm `stitch()` equal to the
+     cold one, the full blend within the reference's gate of the kernel
+     and launching no kernel; and on the reduced scene from identical
+     cameras the card's faithful compose against the CPU's (median <= 1,
+     >= 99.9% within 4, masks <= 0.5%), the int16 pyramid stages and
+     `MultiBandBlenderCV` card == CPU, and from one Registration the float
+     canvas blends (multiband on the float pyramids, feather, paste)
+     within 1e-3 with equal masks and `compose_panorama` within one step
+     on <= 0.1% of values. The phase runs under PyTorch's default flags
+     (cuDNN's TF32 on), not the script's.
+  13. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
@@ -1446,6 +1466,7 @@ def phase_stitcher(C):
         C.seed, dev, img_wh=STITCH_WH, tex_hw=STITCH_TEX_HW,
         blobs=STITCH_BLOBS)
     scene_s = time.perf_counter() - t0
+    C.stitch_scene = (frames, Rs_true, f_true)     # the still phase's views
     print(f"stitcher: g++ max-flow library {maxflow_build_s:.2f} s; "
           f"{len(frames)} views {frames[0].shape} rendered in {scene_s:.2f} "
           f"s; focal {f_true:.1f}", flush=True)
@@ -1652,6 +1673,325 @@ def phase_stitcher(C):
         f"fresh process {first['total']:.3f} s (estimate_cameras "
         f"{first['estimate_cameras']:.3f} s)", flush=True)
     return rows, metrics
+
+
+# -- the still path: Stitcher.stitch, compose_panorama, the full blend -------
+
+# warm stitch() calls after the first, and the frames the full blend and
+# the feather kernel are timed over
+STILL_WARM, STILL_FRAMES = 2, 5
+STILL_SPANS = ("registration", "seam_prep", "exposure_compensation",
+               "seam_finding", "compositing")
+
+
+def pano_gates(pano, mask, what: str) -> dict:
+    """The reference's own gates of a still panorama (tests/test_stitcher.py
+    :47-59): most of it covered, the covered part not black."""
+    cover = float(mask.mean())
+    mean = float(pano[mask].mean()) if mask.any() else 0.0
+    if pano.ndim != 3 or pano.shape[2] != 3 or pano.dtype != np.uint8 \
+            or cover <= 0.5 or mean <= 30:
+        fail(f"{what}: panorama {pano.shape} {pano.dtype}, mask mean "
+             f"{cover:.3f}, covered mean {mean:.1f}")
+    return {"shape": list(pano.shape), "mask_mean": cover,
+            "covered_mean": mean}
+
+
+def device_busy(torch, fn, top: int = 5) -> dict:
+    """One fn() under torch.profiler: the device's kernel time (the sum of
+    the device-side events' time, one stream) against the host clock
+    of the same run, and the kernels that took the most. The profiler's own
+    cost lengthens the run, so the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    # no device-side event: the profiler did not see the card (not measured)
+    return {"wall_s": wall, "device_s": dev_s,
+            "busy_share": dev_s / wall if kernels else None,
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in kernels[:top]]}
+
+
+def phase_still(C):
+    """The still path on the stitcher phase's 5 x 1080p views:
+    Stitcher(StitchConfig()).stitch (faithful: work-scale registration, the
+    OpenCV-faithful compose at full resolution), cold and warm, every span
+    timed; compose_panorama (faithful=False) on estimate_transform's
+    Registration for the multiband and feather blends; one
+    VideoStitcher.composite in feather mode with no state (the full blend)
+    beside the feather kernel's on the same registration. Then the reduced
+    scene from identical cameras, card against CPU: the faithful compose,
+    the float canvas blends (multiband on ops/pyramid.py, feather) and
+    compose_panorama from one Registration, and the int16 pyramid stages
+    bit for bit. The path launches no kernel of the port's own. The phase
+    runs under PyTorch's default flags (cuDNN may use TF32, float32 matrix
+    products may not), so nothing here leans on the script's own."""
+    torch = C.torch
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return still_under_default_flags(C)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def conv_tf32_err(torch, dev) -> float:
+    """How far cuDNN's TF32 flag moves the depthwise convolution that
+    ops/filters.py sep_filter2d runs for the float pyramids: the same
+    F.conv2d on a channels-last 0..255 input with the flag on against off
+    (0: the port's float pyramids need no flag of their own)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.rand((1, 1088, 1920, 3), device=dev, generator=g) * 255) \
+        .permute(0, 3, 1, 2)
+    w = torch.tensor([1., 4., 6., 4., 1.], device=dev).div(16) \
+        .reshape(1, 1, 5, 1).expand(3, 1, 5, 1)
+    out = []
+    for on in (True, False):
+        torch.backends.cudnn.allow_tf32 = on
+        out.append(F.conv2d(x, w, groups=3))
+    torch.backends.cudnn.allow_tf32 = True
+    return float((out[0] - out[1]).abs().max())
+
+
+def still_under_default_flags(C):
+    torch, dev = C.torch, C.dev
+    from stitchingvideo_tpu_torch import Registration, Stitcher
+    from stitchingvideo_tpu_torch.blend.multiband_cv import \
+        MultiBandBlenderCV
+    from stitchingvideo_tpu_torch.models import compose_cv as cc
+    from stitchingvideo_tpu_torch.models.stitcher import (
+        _blend_on_canvas, _remap_gain_batch, _resize_all, _scale_for)
+    from stitchingvideo_tpu_torch.ops import pyramid_int as pi
+    from stitchingvideo_tpu_torch.register.pipeline import register_images
+    from stitchingvideo_tpu_torch.utils import timing
+    from stitchingvideo_tpu_torch.video.lut import build_lut
+    frames = C.stitch_scene[0]
+    frame_hw = frames[0].shape[:2]
+    tracer = timing.GLOBAL_TRACER
+
+    def timed(fn):
+        """(fn(), its spans and total seconds), every span ending synced."""
+        tracer.spans.clear()
+        timing.set_sync_spans(True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        return out, dict({n: v[-1] for n, v in tracer.spans.items()},
+                         total=total)
+
+    def compose_cfg(**compose):
+        cfg = C.StitchConfig()
+        return cfg.replace(compose=dataclasses.replace(cfg.compose,
+                                                       **compose))
+
+    C.reset_counts()
+    # -- stitch(), the default config: faithful, cylindrical, gain_blocks,
+    # gc_color, multiband, full-resolution compose
+    st = Stitcher(C.StitchConfig())
+    (pano, mask), cold = timed(lambda: st.stitch(frames))
+    warm = [timed(lambda: st.stitch(frames)) for _ in range(STILL_WARM)]
+    if st.component() != list(range(N_CAMS)):
+        fail(f"stitch() kept cameras {st.component()}")
+    wrap = 2 * np.pi * float(st._last_result.warped_image_scale) \
+        / st.work_scale()
+    if pano.shape[1] > wrap + STITCH_WH[0]:
+        fail(f"stitch(): panorama width {pano.shape[1]} exceeds one wrap "
+             f"({wrap:.0f}) plus a view")
+    gates = {"stitch": pano_gates(pano, mask, "stitch()")}
+    warm_equal = [bool(np.array_equal(p[0], pano)
+                       and np.array_equal(p[1], mask)) for p, _t in warm]
+    if not all(warm_equal):
+        fail(f"a warm stitch() differs from the cold one: {warm_equal}")
+
+    # -- compose_panorama on estimate_transform's Registration
+    reg, res, cscale = Stitcher(compose_cfg(faithful=False)) \
+        .estimate_transform(frames)
+    owned = (reg.seam_masks & reg.valid).reshape(N_CAMS, -1).sum(1).tolist()
+    if min(owned) == 0:
+        fail(f"a camera owns no canvas pixels: {owned}")
+    compose_s = {}
+    for bt in ("multiband", "feather"):
+        sp = Stitcher(compose_cfg(faithful=False, blend_type=bt))
+        runs = [timed(lambda: sp.compose_panorama(frames, reg, res, cscale))
+                for _ in range(2)]
+        p, m = runs[0][0]
+        gates[f"compose_{bt}"] = pano_gates(p, m, f"compose_panorama({bt})")
+        compose_s[bt] = [r[1]["total"] for r in runs]
+
+    # -- the runtime's full blend: a registration with no feather state
+    # (installed in 'lut' mode with the plain gather, then the mode
+    # switched), beside the feather kernel on the same registration
+    blend_vs = C.VideoStitcher(video_cfg(C, kernel="gather"))
+    CW, CH = reg.canvas_wh
+    lut = build_lut(reg, crop=blend_vs._crop_slices((CH, CW),
+                                                    reg.extent_wh))
+    blend_vs.install_lut(lut, frame_hw, reg=reg)
+    blend_vs.cfg = video_cfg(C, kernel="gather", compose_mode="feather")
+    feather_vs = C.VideoStitcher(video_cfg(C, compose_mode="feather"))
+    feather_vs.install_lut(lut, frame_hw, reg=reg)
+    if blend_vs._ftlut is not None or feather_vs._ftlut is None:
+        fail("the full blend's stitcher holds a feather state, or the "
+             "kernel's does not")
+    full = blend_vs.composite(frames)
+    torch.cuda.synchronize()
+    launches = C.read_counts()
+    print(f"still main path launches: {launched(launches)}", flush=True)
+    if any(launches.values()):
+        fail("the still path or the full blend launched a kernel")
+    hot = feather_vs.composite(frames)
+    if C.fe.FEATHER_SINGLE.launches != 1:
+        fail("the feather stitcher did not launch its kernel")
+    if full.shape != hot.shape or (full.sum(-1) > 0).mean() <= 0.5:
+        fail(f"full blend {full.shape} against the kernel's {hot.shape}")
+    cov = (full.sum(-1) > 0) & (hot.sum(-1) > 0)
+    d = np.abs(hot.astype(np.int16) - full.astype(np.int16))[cov]
+    full_vs_kernel = {"median": float(np.median(d)),
+                      "within_4": float((d <= 4).mean()), "max": int(d.max())}
+    # the reference's gate of its feather kernel against its full blend
+    # (tests/test_pallas_feather.py:100-110)
+    if full_vs_kernel["median"] > 1 or full_vs_kernel["within_4"] <= 0.99:
+        fail(f"full blend vs feather kernel: {full_vs_kernel}")
+    frame_ms = {
+        "full_blend": latency(torch, lambda: blend_vs.composite(frames),
+                              STILL_FRAMES),
+        "feather_kernel": latency(torch, lambda: feather_vs.composite(frames),
+                                  STILL_FRAMES)}
+    busy = {"stitch": device_busy(torch, lambda: st.stitch(frames)),
+            "full_blend": device_busy(torch,
+                                      lambda: blend_vs.composite(frames))}
+
+    # -- the reduced scene from identical cameras, card against CPU
+    small_views = registration_scene(C.seed, "cpu", **SMALL_SCENE)[0]
+    small = small_cfg(C.StitchConfig())
+    sh, sw = small_views[0].shape[:2]
+    ws = _scale_for(small.scales.work_megapix, sw, sh)
+    sres = register_images(_resize_all(small_views, ws, "cpu"), small,
+                           C.seed, device="cpu")
+    kept = [small_views[i] for i in sres.indices]
+    out = {str(d): cc.compose_panorama_cv(
+        kept, sres.cameras, float(sres.warped_image_scale), ws, small,
+        device=d) for d in (dev, "cpu")}
+    (pc, mc), (pp, mp) = out[str(dev)], out["cpu"]
+    if pc.shape != pp.shape:
+        fail(f"reduced compose: card {pc.shape}, CPU {pp.shape}")
+    d = np.abs(pc.astype(np.int16) - pp.astype(np.int16))
+    card_vs_cpu = {"kept": sres.indices, "shape": list(pc.shape),
+                   "median": float(np.median(d)),
+                   "within_4": float((d <= 4).mean()), "max": int(d.max()),
+                   "mask_diff_share": float((mc != mp).mean())}
+    # the int16 stages on identical inputs, bit for bit
+    rng = np.random.default_rng(C.seed + 11)
+    x = torch.from_numpy(rng.integers(-3000, 3000, (256, 352, 3))
+                         .astype(np.int16))
+    lap = {str(d): pi.create_laplace_pyr_i16(x.to(d), 5) for d in (dev,
+                                                                  "cpu")}
+    exact = {
+        "create_laplace_pyr_i16": all(
+            torch.equal(a.cpu(), b) for a, b in zip(lap[str(dev)],
+                                                    lap["cpu"])),
+        "restore_laplace_i16": torch.equal(
+            pi.restore_laplace_i16(lap[str(dev)]).cpu(),
+            pi.restore_laplace_i16(lap["cpu"]))}
+    imgs = rng.integers(0, 256, (2, 200, 300, 3)).astype(np.int16)
+    masks = np.zeros((2, 200, 300), np.uint8)
+    masks[0, 10:190, 5:200] = 255
+    masks[1, 20:180, 150:295] = 255
+    masks[1, 100:110, 150:160] = 97         # partial weights
+    blended = []
+    for d in (dev, "cpu"):
+        mb = MultiBandBlenderCV(5, device=d)
+        mb.prepare((-7, -11, 430, 214))
+        for i, tl in enumerate(((-7, 3), (123, -11))):
+            mb.feed_dev(torch.from_numpy(imgs[i]).to(d),
+                        torch.from_numpy(masks[i]).to(d), tl)
+        blended.append(mb.blend())
+    exact["MultiBandBlenderCV"] = all(
+        np.array_equal(a, b) for a, b in zip(*blended))
+    card_vs_cpu["int16_exact"] = exact
+    # the float canvas blends and compose_panorama from one Registration
+    # (the CPU's), card against CPU: warped inputs made once on the CPU
+    fcfg = small_cfg(compose_cfg(faithful=False))
+    reg_p, res_p, cs_p = Stitcher(fcfg, device="cpu") \
+        .estimate_transform(small_views)
+    reg_c = Registration.from_state_dict(reg_p.state_dict(), device=dev)
+    kept_p = _resize_all([small_views[i] for i in res_p.indices], cs_p, "cpu")
+    Hs = max(v.shape[0] for v in kept_p)
+    Ws = max(v.shape[1] for v in kept_p)
+    batch = np.zeros((len(kept_p), Hs, Ws, 3), np.float32)
+    for i, v in enumerate(kept_p):
+        batch[i, :v.shape[0], :v.shape[1]] = v
+    warped = _remap_gain_batch(torch.from_numpy(batch), reg_p.xmaps,
+                               reg_p.ymaps, reg_p.gain_maps)
+    float_blend = {}
+    for bt in ("multiband", "feather", "no"):
+        got = [_blend_on_canvas(
+            warped.to(d), r.seam_masks, r.valid, reg_p.corners.numpy(),
+            reg_p.canvas_wh, bt, fcfg.compose.blend_strength,
+            fcfg.compose.feather_sharpness) for d, r in ((dev, reg_c),
+                                                         ("cpu", reg_p))]
+        cfg_bt = fcfg.replace(compose=dataclasses.replace(
+            fcfg.compose, blend_type=bt))
+        u8 = [Stitcher(cfg_bt, device=d).compose_panorama(
+            small_views, r, res_p, cs_p) for d, r in ((dev, reg_c),
+                                                      ("cpu", reg_p))]
+        du8 = np.abs(u8[0][0].astype(np.int16) - u8[1][0].astype(np.int16))
+        float_blend[bt] = {
+            "max_abs": float((got[0][0].cpu() - got[1][0]).abs().max()),
+            "mask_equal": bool(torch.equal(got[0][1].cpu(), got[1][1])),
+            "compose_u8_max": int(du8.max()),
+            "compose_u8_diff_share": float((du8 > 0).mean()),
+            "compose_mask_equal": bool(np.array_equal(u8[0][1], u8[1][1]))}
+    card_vs_cpu["float_blend"] = float_blend
+    card_vs_cpu["conv_tf32_err"] = conv_tf32_err(torch, dev)
+    print(f"still card vs CPU (3 x 320x240, identical cameras): "
+          f"{card_vs_cpu}", flush=True)
+    # float blends: within 1e-3 on 0..255 (TF32 would miss by ~1e-1), masks
+    # equal; through compose_panorama's rounding: one step on <= 0.1%
+    if card_vs_cpu["median"] > 1 or card_vs_cpu["within_4"] < 0.999 \
+            or card_vs_cpu["mask_diff_share"] > 5e-3 \
+            or not all(exact.values()) or any(
+                f["max_abs"] > 1e-3 or not f["mask_equal"]
+                or f["compose_u8_max"] > 1
+                or f["compose_u8_diff_share"] > 1e-3
+                or not f["compose_mask_equal"]
+                for f in float_blend.values()):
+        fail("the still path on the card misses the CPU's tolerance")
+
+    metrics = {
+        "stitch_cold": cold, "stitch_warm": [t for _p, t in warm],
+        "warm_equal_to_cold": warm_equal,
+        "compose_panorama_s": compose_s, "frame_ms": frame_ms,
+        "device_busy": busy,
+        "full_blend_vs_feather_kernel": full_vs_kernel, "gates": gates,
+        "owned_px": owned, "canvas_wh": list(reg.canvas_wh),
+        "launches": launched(launches), "card_vs_cpu": card_vs_cpu}
+    print("still: stitch() cold " + ", ".join(
+        f"{n} {cold.get(n, 0.0):.3f}" for n in STILL_SPANS)
+        + f" (total {cold['total']:.3f} s); warm totals "
+        + ", ".join(f"{t['total']:.3f}" for _p, t in warm) + " s; "
+        f"panorama {pano.shape}; compose_panorama multiband "
+        f"{compose_s['multiband']} s, feather {compose_s['feather']} s; "
+        f"composite host to host p50: full blend "
+        f"{frame_ms['full_blend']['p50_ms']:.2f} ms, feather kernel "
+        f"{frame_ms['feather_kernel']['p50_ms']:.2f} ms; device busy: "
+        f"{busy}", flush=True)
+    return [], metrics
 
 
 # -- the staged kernels against other sources of theirs ----------------------
@@ -1863,7 +2203,7 @@ def main() -> None:
               ("tiled", phase_tiled), ("feather", phase_feather),
               ("multiband", phase_multiband), ("window_probe", phase_probe),
               ("registration", phase_registration),
-              ("stitcher", phase_stitcher))
+              ("stitcher", phase_stitcher), ("still", phase_still))
     if args.ab:
         phases = (("ab", lambda C: phase_ab(C, args.ab)),)
     for name, phase in phases:

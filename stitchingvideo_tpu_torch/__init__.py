@@ -14,7 +14,11 @@ hot loop's state from a frame set, `VideoStitcher.run` streams a frame
 source and re-registers in a worker thread, and `save_registration` /
 `load_registration` persist the state (either package reads the other's
 file); `install_lut` takes a `CompositeLUT` (and, for feather and
-multiband, the `Registration`) directly.
+multiband, the `Registration`) directly. The still path runs too:
+`Stitcher.stitch` (the OpenCV-faithful compose of `models/compose_cv.py` by
+default, or `estimate_transform` + `compose_panorama`), and in feather or
+multiband mode `VideoStitcher.composite` serves the full blend for a
+registration that has no state of the mode.
 
 The package imports torch and numpy only. CUDA sources are compiled with
 nvcc on first use, so the package imports on a machine without a GPU; its

@@ -1,10 +1,11 @@
-"""Stitcher facade, phase 1: frames -> `Registration`.
+"""Stitcher facade: frames -> `Registration` -> panorama.
 
-Port of the registration half of `stitchingvideo_tpu/models/stitcher.py`
-(cv::Stitcher::estimateTransform, reference src/stitcher.cpp:91-112, and the
-CLI flow stitching_detailed.cpp:545-716). Registration runs at work_megapix,
-seams and exposure at seam_megapix, the per-pixel fields at compose_megapix,
-linked by work_scale / seam_scale / compose_work_aspect (SURVEY §5.7).
+Port of `stitchingvideo_tpu/models/stitcher.py` (cv::Stitcher::
+estimateTransform and composePanorama, reference src/stitcher.cpp:91-316,
+and the CLI flow stitching_detailed.cpp:545-764). Registration runs at
+work_megapix, seams and exposure at seam_megapix, the per-pixel fields at
+compose_megapix, linked by work_scale / seam_scale / compose_work_aspect
+(SURVEY §5.7).
 
 Frames are resized on the device with OpenCV's INTER_LINEAR arithmetic
 (`ops/resize.py`, bit-exact against `cv2.resize`, which the JAX package
@@ -13,8 +14,14 @@ uses); features, matching and the bundle adjustment are
 compose-scale fields are tensor programs on the device, and the graph cut
 runs on the host (`seams/graphcut.py`). Every shape is bucketed and sticky
 (`_sticky`, `freeze_shapes`): the output size of a video stream must not
-change across re-registrations. Still composition (`compose_panorama`,
-`stitch`) is not ported yet (ROADMAP.md, queue 1, item 19).
+change across re-registrations.
+
+Phase 2 composes a panorama: `compose_panorama` warps the frames through a
+`Registration`'s maps and gains and blends them on the canvas
+(`_remap_gain_batch`, `_blend_on_canvas`, also the runtime's full blend);
+`stitch` runs both phases, or with `cfg.compose.faithful` (the default) the
+OpenCV-faithful still path: registration at the work scale, then
+`models/compose_cv.py`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..blend.feather import feather_blend, feather_weights, paste_blend
+from ..blend.multiband import multiband_blend, num_bands_for, pad_for_bands
 from ..config import StitchConfig
 from ..device import resolve_device
 from ..geometry.warp import (_np_camera_maps, detect_result_roi_batch,
@@ -35,12 +44,13 @@ from ..photometric.exposure import (blocks_gain_maps, gain_compensator,
                                     upsample_gain)
 from ..register.pipeline import (RegistrationResult, _pad_to_bucket,
                                  compute_features, estimate_cameras,
-                                 match_all_pairs)
+                                 match_all_pairs, register_images)
 from ..seams.dp import dp_seams
 from ..seams.graphcut import graphcut_seams_banded
 from ..seams.voronoi import voronoi_seams
 from ..utils.timing import GLOBAL_TRACER as _tracer, maybe_sync as _msync
 from .camera import Cameras
+from .compose_cv import _scale_for, compose_panorama_cv
 from .registration import Registration
 
 
@@ -82,12 +92,6 @@ def _center_gauge(cams: Cameras, kind: str) -> Cameras:
     return Cameras(focal=cams.focal, aspect=cams.aspect, ppx=cams.ppx,
                    ppy=cams.ppy, R=torch.from_numpy(Rn).to(cams.R.device),
                    t=cams.t)
-
-
-def _scale_for(megapix: float, w: int, h: int) -> float:
-    if megapix <= 0:
-        return 1.0
-    return min(1.0, float(np.sqrt(megapix * 1e6 / (w * h))))
 
 
 def _resize_all(images, scale: float, device=None) -> List[np.ndarray]:
@@ -215,7 +219,7 @@ def _seam_warp_batch(images, kind, scale, k_rinvs, corners, shape,
 
 
 class Stitcher:
-    """High-level stitcher, registration phase. See module docstring.
+    """High-level stitcher. See module docstring.
 
     device: 'cuda' unless given; with no CUDA present the default raises.
     `device="cpu"` runs every stage on the CPU."""
@@ -468,3 +472,101 @@ class Stitcher:
             warp_scale=float(c_scale), extent_wh=(EW, EH),
             src_indices=tuple(int(i) for i in reg.indices),
         ), reg, compose_scale
+
+    # ------------------------------------------------------------------
+    # Phase 2: compose_panorama (stitcher.cpp:114-316)
+    # ------------------------------------------------------------------
+    def compose_panorama(self, images: Sequence[np.ndarray], reg: Registration,
+                         reg_result: Optional[RegistrationResult] = None,
+                         compose_scale: float = 1.0
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host frames through a compose-scale registration -> (pano uint8,
+        mask bool) on the host."""
+        cfg = self.cfg
+        if reg_result is not None:
+            images = [images[i] for i in reg_result.indices]
+        imgs = _resize_all(images, compose_scale, self.device)
+        n = reg.n_cameras
+        # pad inputs to a common shape for the batched remap
+        Hs = max(im.shape[0] for im in imgs)
+        Ws = max(im.shape[1] for im in imgs)
+        batch = np.zeros((n, Hs, Ws, 3), np.float32)
+        for i, im in enumerate(imgs):
+            batch[i, :im.shape[0], :im.shape[1]] = im
+        warped = _remap_gain_batch(torch.from_numpy(batch).to(self.device),
+                                   reg.xmaps, reg.ymaps, reg.gain_maps)
+        pano, mask = _blend_on_canvas(
+            warped, reg.seam_masks, reg.valid, reg.corners.cpu().numpy(),
+            reg.canvas_wh, cfg.compose.blend_type, cfg.compose.blend_strength,
+            cfg.compose.feather_sharpness)
+        return (torch.clamp(torch.round(pano), 0, 255).to(torch.uint8)
+                .cpu().numpy(), mask.cpu().numpy())
+
+    def stitch(self, images: Sequence[np.ndarray],
+               seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """Host frames -> (pano uint8, mask bool) on the host."""
+        if self.cfg.compose.faithful:
+            # the OpenCV-faithful still path: registration at the work
+            # scale, then the CLI's compose flow; no Registration is built
+            cfg = self.cfg
+            h0, w0 = images[0].shape[:2]
+            work_scale = _scale_for(cfg.scales.work_megapix, w0, h0)
+            self._last_work_scale = work_scale
+            work_imgs = _resize_all(images, work_scale, self.device)
+            with _tracer.span("registration"):
+                reg = register_images(work_imgs, cfg, seed, self.device)
+            self._last_result = reg
+            kept = [images[i] for i in reg.indices]
+            return compose_panorama_cv(kept, reg.cameras,
+                                       float(reg.warped_image_scale),
+                                       work_scale, cfg, device=self.device)
+        reg, reg_result, compose_scale = self.estimate_transform(images, seed)
+        return self.compose_panorama(images, reg, reg_result, compose_scale)
+
+
+def _remap_gain_batch(images: torch.Tensor, xmaps: torch.Tensor,
+                      ymaps: torch.Tensor, gains: torch.Tensor
+                      ) -> torch.Tensor:
+    """[N, H, W, 3] + maps -> warped [N, Hr, Wr, 3] float32 with gains
+    applied."""
+    return torch.stack([
+        remap(images[i], xmaps[i], ymaps[i], interp="linear",
+              border="reflect") * gains[i][..., None]
+        for i in range(images.shape[0])])
+
+
+def _blend_on_canvas(warped, seam_masks, valids, corners, canvas_wh,
+                     blend_type: str, blend_strength: float,
+                     sharpness: float):
+    """Place per-camera ROIs on the canvas at their host corners and blend:
+    (pano [CH, CW, 3] float32, mask [CH, CW] bool) on warped's device."""
+    CW, CH = canvas_wh
+    n, Hr, Wr = warped.shape[:3]
+    dev = warped.device
+    if blend_type == "multiband":
+        bands = num_bands_for(float(CW * CH), blend_strength)
+        CHp, CWp = pad_for_bands(CH, CW, bands)
+    else:
+        CHp, CWp = CH, CW
+
+    canvas_imgs = torch.zeros((n, CHp, CWp, 3), dtype=torch.float32,
+                              device=dev)
+    canvas_seams = torch.zeros((n, CHp, CWp), dtype=torch.bool, device=dev)
+    for i in range(n):
+        x, y = int(corners[i][0]), int(corners[i][1])
+        h = min(Hr, CHp - y)
+        w = min(Wr, CWp - x)
+        canvas_imgs[i, y:y + h, x:x + w] = \
+            (warped[i] * valids[i][..., None])[:h, :w]
+        canvas_seams[i, y:y + h, x:x + w] = (seam_masks[i] & valids[i])[:h, :w]
+
+    if blend_type == "no":
+        pano, mask = paste_blend(canvas_imgs, canvas_seams)
+    elif blend_type == "feather":
+        pano, mask = feather_blend(canvas_imgs,
+                                   feather_weights(canvas_seams, sharpness))
+    elif blend_type == "multiband":
+        pano, mask = multiband_blend(canvas_imgs, canvas_seams, bands)
+    else:
+        raise ValueError(f"unknown blend type {blend_type}")
+    return pano[:CH, :CW], mask[:CH, :CW]

@@ -13,14 +13,16 @@ with the re-registration worker; `save_registration` / `load_registration`
 persist and restore the state. The hot loop has three modes: seam-select
 (`compose_mode='lut'`, kernels `mat2`, `mat`, `tiled` and the plain
 `gather`), `'feather'` and `'multiband'`; one frame set (or, in the first
-two modes, a micro-batch) goes through the mode's kernel. A state swap is an
-atomic reference assignment under a lock, and the output canvas is frozen to
-the first registration's shape.
+two modes, a micro-batch) goes through the mode's kernel. In `'feather'`
+and `'multiband'` mode, a registration with no state built for the mode is
+served by the full blend (`_composite_blend`: the stitcher's warp and
+canvas blend, every frame). A state swap is an atomic reference assignment
+under a lock, and the output canvas is frozen to the first registration's
+shape.
 
 Still to port, each raising `NotImplementedError` with its ROADMAP.md item:
-`run` with frames in flight (`pipeline_depth > 1`, item 18), the full blend
-that feather and multiband fall back to without a kernel state (item 19)
-and canvas sharding (item 22).
+`run` with frames in flight (`pipeline_depth > 1`, item 18) and canvas
+sharding (item 22).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from ..blend.multiband_video import (build_multiband_state,
                                      multiband_video_frame)
 from ..geometry.undistort import compose_maps, undistort_map_from_config
 from ..models.registration import Registration
-from ..models.stitcher import Stitcher
+from ..models.stitcher import Stitcher, _blend_on_canvas, _remap_gain_batch
 from ..ops.composite import build_tiled_lut, composite_tiled
 from ..ops.composite_feather import (BlendLUT, build_blend_lut,
                                      build_feather_mat,
@@ -276,7 +278,7 @@ class VideoStitcher:
         """Build and swap in the feather kernel state of the live
         registration. Returns False with no registration; a build that
         fails raises and the previous state stays live (the reference
-        demotes to its full blend, item 19)."""
+        demotes to its full blend)."""
         with self._install_lock:
             with self._lock:
                 reg, out_shape = self._reg, self._out_shape
@@ -407,7 +409,9 @@ class VideoStitcher:
         """One frame set through the cached registration: a list of HWC
         uint8 frames -> HWC uint8 panorama, through the kernel of
         cfg.video.compose_mode ('lut': seam-select; 'feather': the top-2
-        feather blend; 'multiband': the windowed Laplacian blend)."""
+        feather blend; 'multiband': the windowed Laplacian blend). In
+        'feather' and 'multiband' mode a registration with no state built
+        for the mode takes the full blend (`_composite_blend`)."""
         # one snapshot: frame selection and the kernel state come from the
         # same registration even if install_lut runs concurrently
         with self._lock:
@@ -416,37 +420,46 @@ class VideoStitcher:
             ftlut, ft_reg = self._ftlut, self._ftlut_reg
             mbt, mb_reg = self._mbtlut, self._mbtlut_reg
         mode = self.cfg.video.compose_mode
-        if mode == "feather":
-            self._need_feather(ftlut)
+        if mode == "feather" and ftlut is not None:
             batch = self._to_device(self._select_frames(frames, ft_reg or reg))
             out = self._feather_planar(batch, ftlut)
-        elif mode == "multiband":
-            if mbt is None:
-                raise RuntimeError(
-                    "multiband state not built: install a registration "
-                    "(load_registration, or install_lut with reg=) with "
-                    "compose_mode='multiband'; the full blend without a "
-                    f"cached state is not ported ({_ROADMAP}, item 19)")
+        elif mode == "multiband" and mbt is not None:
             st, crop_yx = mbt
             batch = self._to_device(self._select_frames(frames, mb_reg or reg))
             out = multiband_video_frame(frames_to_planar_i8(batch), st,
                                         crop_yx=crop_yx)
-        else:
+        elif mode == "lut":
             batch = self._to_device(self._select_frames(frames, reg))
             out = self._planar_with(batch, lut, tlut)
+        else:
+            return self._composite_blend(self._select_frames(frames, reg),
+                                         mode, reg)
         return self._fit_frame(planar_to_hwc(out).cpu().numpy())
+
+    def _composite_blend(self, frames: List[np.ndarray], mode: str,
+                         reg: Optional[Registration] = None) -> np.ndarray:
+        """The full blend: frames through the registration's maps and gains
+        and the stitcher's canvas blend of `mode` ('feather' or
+        'multiband'), with the hot paths' crop and frozen output shape."""
+        if reg is None:
+            with self._lock:
+                reg = self._reg
+        if reg is None:
+            raise RuntimeError("not registered yet")
+        batch = self._to_device(frames).to(torch.float32)
+        warped = _remap_gain_batch(batch, reg.xmaps, reg.ymaps, reg.gain_maps)
+        pano, _mask = _blend_on_canvas(
+            warped, reg.seam_masks, reg.valid, reg.corners.cpu().numpy(),
+            reg.canvas_wh, mode, self.cfg.compose.blend_strength,
+            self.cfg.compose.feather_sharpness)
+        CW, CH = reg.canvas_wh
+        y0, y1, x0, x1 = self._crop_slices((CH, CW), reg.extent_wh)
+        out = torch.clamp(torch.round(pano[y0:y1, x0:x1]), 0, 255) \
+            .to(torch.uint8)
+        return self._fit_frame(out.cpu().numpy())
 
     def _to_device(self, frames: List[np.ndarray]) -> torch.Tensor:
         return torch.from_numpy(np.stack(frames)).to(self.device)
-
-    @staticmethod
-    def _need_feather(ftlut) -> None:
-        if ftlut is None:
-            raise RuntimeError(
-                "feather state not built: install a registration "
-                "(load_registration, or install_lut with reg=) with "
-                "compose_mode='feather'; the full blend without a kernel "
-                f"state is not ported ({_ROADMAP}, item 19)")
 
     def composite_device(self, batch: torch.Tensor) -> torch.Tensor:
         """Device-resident hot path (no host transfer): [N, H, W, 3] uint8
@@ -479,7 +492,11 @@ class VideoStitcher:
         [3, Hp, Wp] uint8 planar."""
         with self._lock:
             ftlut = self._ftlut
-        self._need_feather(ftlut)
+        if ftlut is None:
+            raise RuntimeError(
+                "feather state not built: install a registration "
+                "(load_registration, or install_lut with reg=) with "
+                "compose_mode='feather'")
         return self._feather_planar(batch, ftlut)
 
     @staticmethod

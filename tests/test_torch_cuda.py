@@ -875,3 +875,94 @@ def test_band_crop_and_scatter_on_the_card(dev):
                                   org.to(dev), 64, 128)
     assert torch.equal(got.cpu(), graphcut._scatter_bands(masks, band, idx,
                                                           org, 64, 128))
+
+
+def test_int16_pyramids_on_the_card_are_the_cpus(dev):
+    """The still path's CV_16S pyramids and MultiBandBlenderCV fed the same
+    inputs: card == CPU bit for bit."""
+    from stitchingvideo_tpu_torch.blend.multiband_cv import MultiBandBlenderCV
+    from stitchingvideo_tpu_torch.ops import pyramid_int as pi
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(-3000, 3000, (256, 352, 3))
+                         .astype(np.int16))
+    for a, b in zip(pi.create_laplace_pyr_i16(x.to(dev), 5),
+                    pi.create_laplace_pyr_i16(x, 5)):
+        assert torch.equal(a.cpu(), b)
+    lap = pi.create_laplace_pyr_i16(x, 5)
+    assert torch.equal(pi.restore_laplace_i16([t.to(dev) for t in lap])
+                       .cpu(), pi.restore_laplace_i16(lap))
+    imgs = rng.integers(0, 256, (2, 200, 300, 3)).astype(np.int16)
+    masks = np.zeros((2, 200, 300), np.uint8)
+    masks[0, 10:190, 5:200] = 255
+    masks[1, 20:180, 150:295] = 255
+    masks[1, 100:110, 150:160] = 97
+    corners = [(-7, 3), (123, -11)]
+    out = []
+    for d in (dev, "cpu"):
+        mb = MultiBandBlenderCV(5, device=d)
+        mb.prepare((-7, -11, 430, 214))
+        for i in range(2):
+            mb.feed_dev(torch.from_numpy(imgs[i]).to(d),
+                        torch.from_numpy(masks[i]).to(d), corners[i])
+        out.append(mb.blend())
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+def test_resize_linear_dev_ignores_tf32(dev):
+    """_resize_linear_dev runs no matrix product: with TF32 on globally the
+    card still gives the CPU's bits."""
+    from stitchingvideo_tpu_torch.photometric.exposure_cv import \
+        _resize_linear_dev
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    rng = np.random.default_rng(3)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        for gh, gw, h, w in ((9, 12, 288, 384), (37, 61, 1152, 1920),
+                             (240, 320, 1080, 1440)):
+            g = torch.from_numpy(rng.uniform(0.5, 1.5, (gh, gw))
+                                 .astype(np.float32))
+            assert torch.equal(_resize_linear_dev(g.to(dev), h, w).cpu(),
+                               _resize_linear_dev(g, h, w))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_float_pyramids_and_multiband_blend_ignore_tf32(dev):
+    """ops/pyramid.py and multiband_blend (depthwise convolutions) with
+    TF32 on globally, PyTorch's default for cuDNN: the card within 1e-3 of
+    the CPU on 0..255 data (TF32 would round an input near 255 by up to
+    0.12; chip_smoke.py's still phase measured 0 for the blends)."""
+    from stitchingvideo_tpu_torch.blend.multiband import multiband_blend
+    from stitchingvideo_tpu_torch.ops import pyramid
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.uniform(0, 255, (256, 384, 3))
+                           .astype(np.float32))
+    imgs = torch.from_numpy(rng.uniform(0, 255, (3, 256, 384, 3))
+                            .astype(np.float32))
+    masks = torch.zeros((3, 256, 384), dtype=torch.bool)
+    masks[0, :, :160] = True
+    masks[1, 20:240, 120:290] = True
+    masks[2, :, 250:] = True
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        for a, b in zip(pyramid.laplacian_pyramid(img.to(dev), 5),
+                        pyramid.laplacian_pyramid(img, 5)):
+            assert (a.cpu() - b).abs().max() <= 1e-3
+        assert (pyramid.collapse_laplacian(
+            pyramid.laplacian_pyramid(img.to(dev), 5)).cpu()
+            - img).abs().max() <= 1e-3
+        for bands in (0, 3, 5):
+            pc, mc = multiband_blend(imgs.to(dev), masks.to(dev), bands)
+            pp, mp = multiband_blend(imgs, masks, bands)
+            assert (pc.cpu() - pp).abs().max() <= 1e-3
+            assert torch.equal(mc.cpu(), mp)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

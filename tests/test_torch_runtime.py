@@ -413,30 +413,57 @@ def test_multiband_second_load_rebuilds_the_state(saved):
     np.testing.assert_array_equal(vs.composite(frames), first)
 
 
-def test_multiband_needs_a_registration():
-    """Multiband with no registration has no cached state; the full blend
-    the reference falls back to is not ported, so the hot path raises."""
-    vs = VideoStitcher(_cfg(compose_mode="multiband"), device="cpu")
-    assert vs.build_multiband_state(FRAME_HW) is False
+def _without_state(saved, mode):
+    """`mode` ('feather' or 'multiband') with a LUT and no registration:
+    composite() raises, in the port as in the reference. With a
+    registration and no state built for the mode (installed in 'lut' mode,
+    then the mode switched, as tests/test_video.py:271-274 switches), it
+    serves the full blend, within one step of the reference's on <= 0.01%
+    of values (tests/test_torch_still.py). Returns the port's stitcher."""
     lut = build_lut(Registration.from_state_dict(make_registration_dict(),
                                                  device="cpu"))
+    jlut = jlut_mod.build_lut(JReg.from_state_dict(make_registration_dict()))
+    vs = VideoStitcher(_cfg(compose_mode=mode), device="cpu")
+    jvs = JVideoStitcher(_cfg(JStitchConfig, compose_mode=mode))
     vs.install_lut(lut, FRAME_HW)
-    assert vs._tlut is None and vs._mbtlut is None
-    with pytest.raises(RuntimeError, match="multiband.*item 19"):
-        vs.composite(_frames(18))
+    jvs.install_lut(jlut, FRAME_HW)
+    assert vs._tlut is None and vs._ftlut is None and vs._mbtlut is None
+    for v in (vs, jvs):
+        with pytest.raises(RuntimeError, match="not registered"):
+            v.composite(_frames(18))
+    for v in (vs, jvs):
+        v.cfg = v.cfg.replace(video=dataclasses.replace(v.cfg.video,
+                                                        compose_mode="lut"))
+        v.load_registration(saved["full"])
+        v.cfg = v.cfg.replace(video=dataclasses.replace(v.cfg.video,
+                                                        compose_mode=mode))
+    assert vs._ftlut is None and vs._mbtlut is None
+    got, want = vs.composite(_frames(18)), jvs.composite(_frames(18))
+    # the first LUT (uncropped, 128 x 1088) froze the output shape
+    assert got.shape == want.shape == tuple(vs._out_shape) + (3,) \
+        == (128, 1088, 3)
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-4
+    return vs
+
+
+def test_multiband_needs_a_registration(saved):
+    """Multiband with no registration has no cached state and nothing to
+    blend: the hot path raises; given a registration without a multiband
+    state, it serves the full blend."""
+    vs = VideoStitcher(_cfg(compose_mode="multiband"), device="cpu")
+    assert vs.build_multiband_state(FRAME_HW) is False
+    _without_state(saved, "multiband")
 
 
 def test_feather_needs_a_registration(saved):
-    """Feather with no registration has no kernel state; the full blend it
-    would fall back to is not ported, so the hot path raises."""
-    vs = VideoStitcher(_cfg(compose_mode="feather"), device="cpu")
-    lut = build_lut(Registration.from_state_dict(make_registration_dict(),
-                                                 device="cpu"))
-    vs.install_lut(lut, FRAME_HW)
-    assert vs._tlut is None and vs._ftlut is None
+    """Feather with no registration has no kernel state and nothing to
+    blend: the hot path raises; given a registration without a feather
+    state, composite() serves the full blend, and the kernel's own entry
+    points still raise."""
+    vs = _without_state(saved, "feather")
     batch = torch.from_numpy(np.stack(_frames(18)))
-    for call in (lambda: vs.composite(_frames(18)),
-                 lambda: vs.composite_feather_planar(batch),
+    for call in (lambda: vs.composite_feather_planar(batch),
                  lambda: vs.composite_microbatch(
                      frames_to_planar_i8(batch)[None])):
         with pytest.raises(RuntimeError, match="feather"):
