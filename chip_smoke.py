@@ -76,7 +76,23 @@ What it does, in phases (any failure exits non-zero):
      with one forced re-registration delivers every frame in order, with
      the frame times during and outside the re-registration; and the
      reduced scene registered on the card and on the CPU must agree.
-  12. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
+  12. stream (`StreamingComposer`, `run(pipeline_depth > 1)`): the stitcher
+     phase's registration saved, loaded into one `VideoStitcher` and
+     installed from it into one of each other mode; the stages of a
+     streamed frame set on the host and the card, each alone;
+     16 distinct frame sets (the views rolled as for K1) at depths 1, 2, 4
+     and 8, 48 deliveries each, in the seam-select (K2), feather (K4) and
+     multiband (pieces) modes: delivered fps, the gap between deliveries
+     and the submit-to-delivery latency (p50/p95), the device_reduce
+     checksum rate at depth 8, the serial `composite()` beside them; one
+     `torch.profiler` window at depth 4 in seam-select mode (the card's
+     busy share and the copies and kernels that overlap); gates: every
+     delivery, compared after the last submit, equal to the serial
+     `composite()` of its frame set, each mode's kernel launched once a
+     submit and only on the composers' streams, distinct checksums, and
+     `run(pipeline_depth=4)` with one forced re-registration delivering
+     every frame set once, in order, with the output shape frozen.
+  13. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
      stitcher phase's 5 x 1080p views through `Stitcher(StitchConfig())
      .stitch` (the OpenCV-faithful path: work-scale registration, block
      gains, graph-cut seams, the int16 multiband blender at full
@@ -96,7 +112,7 @@ What it does, in phases (any failure exits non-zero):
      within 1e-3 with equal masks and `compose_panorama` within one step
      on <= 0.1% of values. The phase runs under PyTorch's default flags
      (cuDNN's TF32 on), not the script's.
-  13. times: each kernel's time beside its bound, its plain version's and,
+  14. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
@@ -416,6 +432,61 @@ def mat2_needs(torch, ml, m2) -> dict:
             "kernel_px": n_kern, "fallback_px": n_fb_cov}
 
 
+def mat2_bound(need: dict, table_bytes: int, pano_px: int, B: int):
+    """K1/K2's least time for B frame sets (`need` from `mat2_needs`): each
+    input byte the function needs read once, each output written once: the
+    frame sectors the taps touch, B times; the LUT as read and the staging
+    table; B*3 output planes. ~14 operations a pixel, channel and frame set
+    on the integer path (4 int multiplies, 3 adds, convert, 3 float ops,
+    round, 2 clamps), ~16 on the float path of a fallback pixel."""
+    return bound(B * need["frame_bytes"] + need["lut_bytes"] + table_bytes
+                 + B * 3 * pano_px,
+                 B * 3 * (14 * need["kernel_px"] + 16 * need["fallback_px"]))
+
+
+def pieces_bound(need: dict, table_bytes: int, npix: int, B: int):
+    """The multiband warp stage's least time for B frame sets of `npix`
+    window pixels: the frame sectors the taps touch, B times; the state as
+    read and the staging table; 2 bytes a value out. Operations as mat2's,
+    plus a convert a value."""
+    return bound(B * need["frame_bytes"] + need["lut_bytes"] + table_bytes
+                 + B * 3 * npix * 2,
+                 B * 3 * (15 * need["kernel_px"] + 17 * need["fallback_px"]
+                          + 1 * npix))
+
+
+def feather_needs(torch, m2, ml) -> dict:
+    """What the feather function must read for this state, for its bound:
+    the frame sectors the taps of both slots touch; the state as the kernel
+    reads it (tap_cw of both slots, slot 0's alone on a fallback pixel;
+    tap_xy and gw of a live slot; tap_xy and the four fb_* entries of both
+    slots of a fallback pixel)."""
+    npix = ml.pano_hw[0] * ml.pano_hw[1]
+    live = ml.tap_cw >= 0
+    n_live = [int(live[s].sum()) for s in range(2)]
+    taps = [int_taps(ml.fields(s), ml.frame_hw) for s in range(2)]
+    taps += [float_taps(m2, ml.fb_cam[:, s], ml.fb_sx[:, s], ml.fb_sy[:, s],
+                        ml.frame_hw) for s in range(2)]
+    n_fb = ml.fb_pix.numel()
+    return {"frame_bytes": sector_bytes(torch, taps, ml.frame_hw),
+            "state_bytes": 8 * npix - 4 * n_fb + 8 * sum(n_live) + 36 * n_fb,
+            "live_slot_px": n_live, "fallback_px": n_fb,
+            "fallback_live_px": int((ml.fb_cam >= 0).sum()),
+            "pano_px": npix}
+
+
+def feather_bound(need: dict, table_bytes: int, B: int):
+    """K4's least time for B frame sets (`need` from `feather_needs`): a
+    live slot ~12 operations a channel and frame set, a pixel's tail 4, a
+    fallback pixel's live slot ~14; the state as read and the staging
+    table."""
+    npix = need["pano_px"]
+    return bound(B * need["frame_bytes"] + need["state_bytes"] + table_bytes
+                 + B * 3 * npix,
+                 B * 3 * (12 * sum(need["live_slot_px"]) + 4 * npix
+                          + 14 * need["fallback_live_px"]))
+
+
 def staging_of(C, ml, what: str, library) -> dict:
     """The staging table of a staged kernel's state: rebuilt from the
     state's kernel taps and timed (the part of the state build it costs),
@@ -479,6 +550,13 @@ def latency(torch, fn, n: int) -> dict:
     ts = np.asarray(ts[2:])
     return {"p50_ms": float(np.median(ts)),
             "p95_ms": float(np.percentile(ts, 95)), "n": n}
+
+
+def p50_p95(a) -> dict:
+    """Median and 95th percentile of the values `a` (milliseconds)."""
+    a = np.asarray(a)
+    return ({"n": int(a.size), "p50_ms": float(np.median(a)),
+             "p95_ms": float(np.percentile(a, 95))} if a.size else {"n": 0})
 
 
 def max_err(a, b) -> int:
@@ -601,18 +679,6 @@ def phase_mat2(C):
           f"(the sectors its taps touch) and {need['lut_bytes']} LUT bytes",
           flush=True)
 
-    def mat2_bound(B):
-        # each input byte the function needs read once, each output written
-        # once: the frame sectors the taps touch, B times; the LUT as read
-        # and the staging table; B*3 output planes. ~14 operations a pixel,
-        # channel and frame set on the integer path (4 int multiplies, 3
-        # adds, convert, 3 float ops, round, 2 clamps), ~16 on the float
-        # path of a fallback pixel
-        return bound(B * need["frame_bytes"] + need["lut_bytes"]
-                     + staging["table_bytes"] + B * 3 * npix,
-                     B * 3 * (14 * need["kernel_px"]
-                              + 16 * need["fallback_px"]))
-
     rows = []
     for k, B, tpu_line, fn in (
             (m2.MAT2_SINGLE, 1, 388,
@@ -626,7 +692,7 @@ def phase_mat2(C):
             event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: m2.composite_mat2_plain(planar, ml),
                      reps=2, warmup=1),
-            *mat2_bound(B),
+            *mat2_bound(need, staging["table_bytes"], npix, B),
             # no one PyTorch call computes the integer-weight gather
             library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
             stage_bytes=staging["stage_bytes"],
@@ -669,7 +735,8 @@ def phase_mat2(C):
         "b1_latency_host": latency(torch, lambda: vs.composite(frames), 20),
         "b1_latency_device": latency(
             torch, lambda: vs.composite_planar(frames_d), 20),
-        "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32": mat2_bound(32)[0],
+        "mat2_kernel_ms_b32": ms32, "mat2_bound_ms_b32":
+        mat2_bound(need, staging["table_bytes"], npix, 32)[0],
         "mat2_needs": need, "install_lut_s": install_s, "staging": staging,
     }
     print("mat2: kernel outputs bit-exact against plain versions, batched "
@@ -971,26 +1038,7 @@ def phase_feather(C):
         fail("feather misses the dual-gather oracle's gates")
     del blut, oracle, diff
 
-    taps = [int_taps(ml.fields(s), ml.frame_hw) for s in range(2)]
-    taps += [float_taps(m2, ml.fb_cam[:, s], ml.fb_sx[:, s], ml.fb_sy[:, s],
-                        ml.frame_hw) for s in range(2)]
-    frame_bytes = sector_bytes(torch, taps, ml.frame_hw)
-    del taps
-    n_fb = ml.fb_pix.numel()
-    n_fb_live = int((ml.fb_cam >= 0).sum())
-    # tap_cw of both slots (slot 0's alone on a fallback pixel); tap_xy and
-    # gw of a live slot; tap_xy and the four fb_* entries of both slots of a
-    # fallback pixel
-    state_bytes = 8 * npix - 4 * n_fb + 8 * sum(n_live) + 36 * n_fb
-
-    def feather_bound(B):
-        # a live slot ~12 operations a channel and frame set, a pixel's tail
-        # 4; a fallback pixel's live slot ~14. The state as read and the
-        # staging table
-        return bound(B * frame_bytes + state_bytes + staging["table_bytes"]
-                     + B * 3 * npix,
-                     B * 3 * (12 * sum(n_live) + 4 * npix + 14 * n_fb_live))
-
+    need = feather_needs(torch, m2, ml)
     rows = []
     for k, B, err, fn in (
             (fe.FEATHER_SINGLE, 1, err1,
@@ -1003,7 +1051,7 @@ def phase_feather(C):
             launches[k.name], err, event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: fe.composite_feather_plain(planar, ml),
                      reps=2, warmup=1),
-            *feather_bound(B),
+            *feather_bound(need, staging["table_bytes"], B),
             # no one PyTorch call computes the dual integer-weight gather
             library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
             stage_bytes=staging["stage_bytes"],
@@ -1018,8 +1066,7 @@ def phase_feather(C):
         "build_feather_state_s": build_s, "load_registration_s": load_s,
         "two_slot_share": two_slot, "fallback_share": fb_share,
         "fallback_tiles": ml.n_fallback, "staging": staging,
-        "needs": {"frame_bytes": frame_bytes, "state_bytes": state_bytes,
-                  "live_slot_px": n_live, "fallback_px": n_fb},
+        "needs": need,
     }
     print("feather: kernel outputs bit-exact against the plain version, "
           "batched == single", flush=True)
@@ -1129,16 +1176,6 @@ def phase_multiband(C):
 
     # -- times
     need = mat2_needs(torch, ml, m2)
-
-    def pieces_bound(B):
-        # frame sectors the taps touch, B times; the state as read and the
-        # staging table; 2 bytes a value out. Operations as mat2, plus a
-        # convert a value
-        return bound(B * need["frame_bytes"] + need["lut_bytes"]
-                     + staging["table_bytes"] + B * 3 * npix * 2,
-                     B * 3 * (15 * need["kernel_px"]
-                              + 17 * need["fallback_px"] + 1 * npix))
-
     rows = []
     for k, B, n_launch, err, path, fn in (
             (m2.PIECES_BATCHED, 1, launches1[m2.PIECES_BATCHED.name], err1,
@@ -1160,7 +1197,7 @@ def phase_multiband(C):
             n_launch, err, event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: m2.composite_mat2_pieces_plain(
                 planar, ml, Nv), reps=1, warmup=1),
-            *pieces_bound(B),
+            *pieces_bound(need, staging["table_bytes"], npix, B),
             # no one PyTorch call computes the integer-weight gather
             library_ms=None, batch=B, path=path,
             direct_blocks=staging["direct_blocks"],
@@ -1466,7 +1503,8 @@ def phase_stitcher(C):
         C.seed, dev, img_wh=STITCH_WH, tex_hw=STITCH_TEX_HW,
         blobs=STITCH_BLOBS)
     scene_s = time.perf_counter() - t0
-    C.stitch_scene = (frames, Rs_true, f_true)     # the still phase's views
+    # the stream and still phases' views
+    C.stitch_scene = (frames, Rs_true, f_true)
     print(f"stitcher: g++ max-flow library {maxflow_build_s:.2f} s; "
           f"{len(frames)} views {frames[0].shape} rendered in {scene_s:.2f} "
           f"s; focal {f_true:.1f}", flush=True)
@@ -1581,16 +1619,10 @@ def phase_stitcher(C):
     ct = np.asarray(vs.stats.compose_s[base:]) * 1e3
     during = ct[np.asarray(busy)]
     outside = ct[~np.asarray(busy)][5:]     # after the first few frames
-
-    def pct(a):
-        return ({"n": int(a.size), "p50_ms": float(np.median(a)),
-                 "p95_ms": float(np.percentile(a, 95))} if a.size else
-                {"n": 0})
-
     run_m = {"frames": RUN_FRAMES, "seconds": run_s,
              "registrations": vs.registrations,
-             "frame_ms_during_reregistration": pct(during),
-             "frame_ms_outside": pct(outside)}
+             "frame_ms_during_reregistration": p50_p95(during),
+             "frame_ms_outside": p50_p95(outside)}
     print(f"stitcher run(): {run_m}", flush=True)
     if during.size == 0:
         fail("no frame was composited while the re-registration ran")
@@ -1633,12 +1665,6 @@ def phase_stitcher(C):
     Hp, Wp = ml.pano_hw
     staging_bytes = ml.stage_table.numel() * 4
 
-    def stitch_bound(B):
-        return bound(B * need["frame_bytes"] + need["lut_bytes"]
-                     + staging_bytes + B * 3 * Hp * Wp,
-                     B * 3 * (14 * need["kernel_px"]
-                              + 16 * need["fallback_px"]))
-
     rows = []
     for k, B, tpu_line, fn, plain in (
             (m2.MAT2_SINGLE, 1, 388,
@@ -1651,7 +1677,8 @@ def phase_stitcher(C):
             k, "composite_mat2.cu", f"composite_mat2.py:{tpu_line}",
             launches[k.name], err["single" if B == 1 else "batched"],
             event_ms(torch, fn, reps=10, warmup=2),
-            event_ms(torch, plain, reps=2, warmup=1), *stitch_bound(B),
+            event_ms(torch, plain, reps=2, warmup=1),
+            *mat2_bound(need, staging_bytes, Hp * Wp, B),
             library_ms=None, batch=B, path="stitcher"))
     metrics = {
         "maxflow_build_s": maxflow_build_s, "scene_s": scene_s,
@@ -1666,12 +1693,333 @@ def phase_stitcher(C):
         "rotation_err_deg_max": max(rot_err), "fallback_tiles":
         ml.n_fallback, "valid_px": valid_px, "owned_px": owned,
         "mat2_needs": need, "run": run_m, "card_vs_cpu": card_vs_cpu}
+    C.stitch_vs = vs                   # the stream phase's registration
     print("stitcher: register cold " + ", ".join(
         f"{n} {times[0][n]:.3f}" for n in STITCH_SPANS)
         + f" (total {times[0]['total']:.3f} s); warm totals "
         + ", ".join(f"{t['total']:.3f}" for t in times[1:]) + " s; in a "
         f"fresh process {first['total']:.3f} s (estimate_cameras "
         f"{first['estimate_cameras']:.3f} s)", flush=True)
+    return rows, metrics
+
+
+# -- frames in flight: StreamingComposer and run(pipeline_depth > 1) ---------
+
+# frame sets held in host memory (set b: the stitcher phase's views rolled by
+# STITCH_ROLL * b columns), deliveries a timed run, the depths timed; run()'s
+# frame sets and the frame that asks for a re-registration
+STREAM_SETS, STREAM_DELIVERIES = 16, 48
+STREAM_DEPTHS = (1, 2, 4, 8)
+STREAM_RUN_FRAMES, STREAM_RUN_FORCE_AT = 40, 8
+
+
+def stream_deliveries(sc, sets, n: int):
+    """n submits of sets[k % len(sets)] through the composer `sc`, then its
+    flush: the deliveries in order, and their fps (as bench.py's serial_fps:
+    n over the wall time from the first submit to the last delivery), the
+    gap between deliveries and the submit -> delivery latency."""
+    got, t_sub = [], []
+    for k in range(n):
+        t_sub.append(time.perf_counter())
+        out = sc.submit(sets[k % len(sets)])
+        if out is not None:
+            got.append(out)
+    got += sc.flush()
+    if len(got) != n or len(sc.out_times) < n:
+        fail(f"the composer delivered {len(got)} of {n} frame sets")
+    t_out = np.asarray(sc.out_times[-n:])
+    return got, {"fps": n / (t_out[-1] - t_sub[0]),
+                 "gap": p50_p95(np.diff(t_out) * 1e3),
+                 "latency": p50_p95((t_out - np.asarray(t_sub)) * 1e3)}
+
+
+def device_overlap(torch, fn) -> dict:
+    """One fn() under torch.profiler: the device's busy share (the union of
+    the intervals of its kernels and copies over the host clock of the same
+    run; the profiler's own cost lengthens the run, so a lower bound), and
+    for host -> device copies, kernels and device -> host copies how many
+    ran and how many overlapped one of the other two kinds in time. None
+    where the profiler saw no device activity (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = ("h2d" if "HtoD" in e.name else "d2h" if "DtoH" in e.name
+                else "other" if e.name.startswith(("Memcpy", "Memset"))
+                else "kernel")
+        spans.append((e.time_range.start, e.time_range.end, kind))
+    return {"wall_s": wall, **interval_overlap(spans, wall * 1e6)}
+
+
+def interval_overlap(spans, wall_us: float) -> dict:
+    """`device_overlap`'s counts from (start, end, kind) intervals in us."""
+    kinds = ("h2d", "kernel", "d2h")
+    if not spans:
+        return {"busy_share": None, "count": None, "overlapping": None}
+    spans = sorted(spans)
+    busy, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    count = {k: sum(k2 == k for _, _, k2 in spans) for k in kinds}
+    overlapping = {k: sum(1 for a, b, k2 in spans if k2 == k and any(
+        a2 < b and a < b2 for a2, b2, k3 in spans if k3 in kinds and k3 != k))
+        for k in kinds}
+    return {"busy_share": busy / wall_us, "count": count,
+            "overlapping": overlapping}
+
+
+def host_stages(torch, sets, out_hw, dev) -> dict:
+    """The stages of one streamed frame set, each alone (p50/p95 over the
+    frame sets): the frame set copied into a pinned slot on one thread and
+    a camera a thread (the composer's way); a pinned slot of the panorama's
+    size (`out_hw`) copied out into fresh memory that is kept, as a caller
+    keeps its panoramas; and on the device the upload and the copy back
+    (CUDA events)."""
+    from concurrent.futures import ThreadPoolExecutor
+    slot = torch.empty((len(sets[0]),) + sets[0][0].shape, dtype=torch.uint8,
+                       pin_memory=True)
+    out = torch.empty(tuple(out_hw) + (3,), dtype=torch.uint8,
+                      pin_memory=True)
+    kept = []
+
+    def timed(fn):
+        ts = []
+        for f in sets:
+            t = time.perf_counter()
+            fn(f)
+            ts.append((time.perf_counter() - t) * 1e3)
+        return p50_p95(ts)
+
+    with ThreadPoolExecutor() as pool:
+        m = {"copy_in_one_thread": timed(
+                 lambda f: np.stack(f, out=slot.numpy())),
+             "copy_in_a_camera_a_thread": timed(
+                 lambda f: list(pool.map(np.copyto, slot.numpy(), f))),
+             "copy_out_kept": timed(
+                 lambda f: kept.append(out.numpy().copy()))}
+    del kept
+    slot_d = torch.empty_like(slot, device=dev)
+    out_d = torch.empty_like(out, device=dev)
+    m["upload_ms"] = event_ms(torch, lambda: slot_d.copy_(
+        slot, non_blocking=True), reps=10)
+    m["copy_back_ms"] = event_ms(torch, lambda: out.copy_(
+        out_d, non_blocking=True), reps=10)
+    return m
+
+
+def phase_stream(C):
+    """StreamingComposer on the stitcher phase's 5 x 1080p registration,
+    saved, loaded into a 'lut' VideoStitcher and installed from there into a
+    'feather' and a 'multiband' one: 16 distinct frame sets
+    (the views rolled as the stitcher phase rolls them) at depths 1, 2, 4
+    and 8, 48 deliveries each, in the seam-select (K2), feather (K4) and
+    multiband (pieces) modes; every delivery equal to the serial
+    composite() of its frame set, each mode's kernel launched on the
+    composers' streams only; the device_reduce checksum rate at depth 8;
+    one profiled window at depth 4 in 'lut' mode; run(pipeline_depth=4)
+    with one forced re-registration."""
+    torch, m2, fe, dev = C.torch, C.m2, C.fe, C.dev
+    from stitchingvideo_tpu_torch.video.sources import ReplaySource
+    from stitchingvideo_tpu_torch.video.stream import StreamingComposer
+    t_phase = time.perf_counter()
+    views = C.stitch_scene[0]
+    sets = [[np.roll(v, STITCH_ROLL * b, axis=1) for v in views]
+            for b in range(STREAM_SETS)]
+    # saved and loaded once (each load decompresses ~2 s of arrays); the
+    # loaded registration is installed in the other two modes
+    stitchers, load_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "registration.npz")
+        t0 = time.perf_counter()
+        C.stitch_vs.save_registration(path)
+        save_s = time.perf_counter() - t0
+        for mode in ("lut", "feather", "multiband"):
+            v = C.VideoStitcher(video_cfg(C, compose_mode=mode))
+            t0 = time.perf_counter()
+            if mode == "lut":
+                v.load_registration(path)
+            else:
+                first = stitchers["lut"]
+                v.install_lut(first._lut, first._frame_hw, reg=first._reg)
+            torch.cuda.synchronize()
+            load_s[mode] = time.perf_counter() - t0
+            stitchers[mode] = v
+    planar1 = C.frames_to_planar_i8(
+        torch.from_numpy(np.stack(sets[0])).to(dev))
+    default = torch.cuda.default_stream().cuda_stream
+
+    def checksum(o):
+        return o[::31, ::41].to(torch.int32).sum()
+
+    rows, metrics = [], {"sets": STREAM_SETS,
+                         "deliveries": STREAM_DELIVERIES,
+                         "save_registration_s": save_s,
+                         "host_stages": host_stages(
+                             torch, sets, C.stitch_vs._out_shape, dev)}
+    print(f"stream host stages: {metrics['host_stages']}", flush=True)
+    for mode, kernel in (("lut", m2.MAT2_SINGLE),
+                         ("feather", fe.FEATHER_SINGLE),
+                         ("multiband", m2.PIECES_BATCHED)):
+        v = stitchers[mode]
+        if mode == "lut":
+            if v._tlut is None or v._tlut[0] != "mat2":
+                fail("stream: 'lut' mode did not build mat2")
+            ml = v._tlut[1]
+            fn, plain = (
+                lambda: m2.composite_mat2_planar(planar1, ml),
+                lambda: m2.composite_mat2_plain(planar1[None], ml)[0])
+            bnd = mat2_bound(mat2_needs(torch, ml, m2),
+                             ml.stage_table.numel() * 4,
+                             ml.pano_hw[0] * ml.pano_hw[1], 1)
+            src, tpu = "composite_mat2.cu", "composite_mat2.py:388"
+        elif mode == "feather":
+            if v._ftlut is None or v._ftlut[0] != "fmat":
+                fail("stream: 'feather' mode did not build its state")
+            ml = v._ftlut[1]
+            fn, plain = (
+                lambda: fe.composite_feather_planar(planar1, ml),
+                lambda: fe.composite_feather_plain(planar1[None], ml)[0])
+            bnd = feather_bound(feather_needs(torch, m2, ml),
+                                ml.stage_table.numel() * 4, 1)
+            src, tpu = "composite_feather.cu", "composite_feather.py:354"
+        else:
+            if v._mbtlut is None:
+                fail("stream: 'multiband' mode did not build its state")
+            st = v._mbtlut[0]
+            ml, Nv = st.warp_lut, len(st.piece_cam)
+            fn, plain = (
+                lambda: m2.composite_mat2_planar_pieces_batched(
+                    planar1[None], ml, Nv),
+                lambda: m2.composite_mat2_pieces_plain(planar1[None], ml,
+                                                       Nv))
+            bnd = pieces_bound(mat2_needs(torch, ml, m2),
+                               ml.stage_table.numel() * 4,
+                               Nv * st.buf_hw[0] * st.buf_hw[1], 1)
+            src, tpu = "composite_mat2.cu", "composite_mat2.py:1029"
+        serial, serial_ms = [], []
+        for f in sets:
+            t0 = time.perf_counter()
+            serial.append(v.composite(f))
+            serial_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # the main path, counted: every launch of the mode's kernel and the
+        # stream it was issued on
+        streams, launch, composers = [], kernel.launch, []
+
+        def spy(*args):
+            streams.append(torch.cuda.current_stream().cuda_stream)
+            launch(*args)
+
+        C.reset_counts()
+        kernel.launch = spy
+        submits, m = 0, {"load_or_install_s": load_s[mode],
+                         "serial_composite": p50_p95(serial_ms[1:])}
+        try:
+            for depth in STREAM_DEPTHS:
+                sc = StreamingComposer(v, depth=depth)
+                composers.append(sc)
+                stream_deliveries(sc, sets, depth)     # allocates the ring
+                got, m[f"depth{depth}"] = stream_deliveries(
+                    sc, sets, STREAM_DELIVERIES)
+                submits += depth + STREAM_DELIVERIES
+                # compared after the last submit: a delivery that still
+                # aliased a ring slot would have changed since
+                bad = [k for k, g in enumerate(got)
+                       if not np.array_equal(g, serial[k % STREAM_SETS])]
+                if bad:
+                    fail(f"stream {mode} depth {depth}: deliveries {bad} "
+                         "differ from the serial composite()")
+                del got
+            sc = StreamingComposer(v, depth=8, device_reduce=checksum)
+            composers.append(sc)
+            stream_deliveries(sc, sets, 8)
+            checks, m["checksum_depth8"] = stream_deliveries(
+                sc, sets, STREAM_DELIVERIES)
+            submits += 8 + STREAM_DELIVERIES
+        finally:
+            del kernel.launch
+        torch.cuda.synchronize()
+        launches = C.read_counts()
+        if len({int(c) for c in checks}) < STREAM_SETS:
+            fail(f"stream {mode}: the checksums of distinct frame sets are "
+                 "not distinct")
+        own = {sc._compute.cuda_stream for sc in composers}
+        if launches[kernel.name] != submits or len(streams) != submits \
+                or default in streams or not set(streams) <= own:
+            fail(f"stream {mode}: {launches[kernel.name]} launches of "
+                 f"{kernel.name} for {submits} submits, on streams "
+                 f"{sorted(set(streams))} (the composers': {sorted(own)})")
+        m["launches"] = launched(launches)
+        out, want = fn(), plain()
+        err = float((out.float() - want.float()).abs().max())
+        rows.append(kernel_row(
+            kernel, src, tpu, launches[kernel.name], err,
+            event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, plain, reps=2, warmup=1), *bnd,
+            library_ms=None, batch=1, path=f"stream ({mode})"))
+        metrics[mode] = m
+        print(f"stream {mode}: serial composite p50 "
+              f"{m['serial_composite']['p50_ms']:.2f} ms; " + "; ".join(
+                  f"depth {d}: {m[f'depth{d}']['fps']:.1f} fps, gap p50/p95 "
+                  f"{m[f'depth{d}']['gap']['p50_ms']:.2f}/"
+                  f"{m[f'depth{d}']['gap']['p95_ms']:.2f} ms, latency "
+                  f"p50/p95 {m[f'depth{d}']['latency']['p50_ms']:.2f}/"
+                  f"{m[f'depth{d}']['latency']['p95_ms']:.2f} ms"
+                  for d in STREAM_DEPTHS)
+              + f"; checksums at depth 8: {m['checksum_depth8']['fps']:.1f} "
+              f"fps; {kernel.name} launched {launches[kernel.name]} times "
+              f"on the composers' streams ({time.perf_counter() - t_phase:.1f}"
+              " s into the phase)", flush=True)
+        del serial, checks, composers, sc
+
+    # one profiled window: 16 deliveries at depth 4 in 'lut' mode
+    sc = StreamingComposer(stitchers["lut"], depth=4)
+    stream_deliveries(sc, sets, 4)
+    metrics["profile_lut_depth4"] = device_overlap(
+        torch, lambda: stream_deliveries(sc, sets, STREAM_SETS))
+    print(f"stream lut depth 4 under the profiler: "
+          f"{metrics['profile_lut_depth4']} ({time.perf_counter() - t_phase:.1f}"
+          " s into the phase)", flush=True)
+    del sc, stitchers
+
+    # run(pipeline_depth=4) with one forced re-registration, on the stitcher
+    # phase's own stitcher
+    vs, seen = C.stitch_vs, []
+    shape0, regs0 = vs._out_shape, vs.registrations
+
+    def on_frame(p, i):
+        seen.append((i, p.shape))
+        if i == STREAM_RUN_FORCE_AT:
+            vs.force_reregister()
+
+    t0 = time.perf_counter()
+    vs.run(ReplaySource(views, max_frames=STREAM_RUN_FRAMES),
+           on_frame=on_frame, pipeline_depth=4)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if [i for i, _ in seen] != list(range(STREAM_RUN_FRAMES)) \
+            or {s for _, s in seen} != {tuple(shape0) + (3,)} \
+            or vs._out_shape != shape0 or vs.registrations <= regs0:
+        fail(f"run(pipeline_depth=4) delivered {[i for i, _ in seen]} of "
+             f"shapes {sorted({s for _, s in seen})} with "
+             f"{vs.registrations - regs0} re-registrations")
+    metrics["run_depth4"] = {"frames": STREAM_RUN_FRAMES, "seconds": run_s,
+                             "registrations": vs.registrations - regs0}
+    print(f"stream run(pipeline_depth=4): {STREAM_RUN_FRAMES} frame sets in "
+          f"order with {vs.registrations - regs0} re-registration(s), shape "
+          f"{tuple(shape0)} kept, {run_s:.2f} s", flush=True)
+    C.stitch_vs = None
     return rows, metrics
 
 
@@ -2203,7 +2551,8 @@ def main() -> None:
               ("tiled", phase_tiled), ("feather", phase_feather),
               ("multiband", phase_multiband), ("window_probe", phase_probe),
               ("registration", phase_registration),
-              ("stitcher", phase_stitcher), ("still", phase_still))
+              ("stitcher", phase_stitcher), ("stream", phase_stream),
+              ("still", phase_still))
     if args.ab:
         phases = (("ab", lambda C: phase_ab(C, args.ab)),)
     for name, phase in phases:

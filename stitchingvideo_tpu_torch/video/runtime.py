@@ -18,11 +18,13 @@ and `'multiband'` mode, a registration with no state built for the mode is
 served by the full blend (`_composite_blend`: the stitcher's warp and
 canvas blend, every frame). A state swap is an atomic reference assignment
 under a lock, and the output canvas is frozen to the first registration's
-shape.
+shape. `composite()` is the device half `_dispatch` (snapshot, upload,
+launches) and a host finish; `video/stream.py`'s `StreamingComposer`, which
+`run(pipeline_depth > 1)` uses, keeps frames in flight through the same
+dispatch.
 
-Still to port, each raising `NotImplementedError` with its ROADMAP.md item:
-`run` with frames in flight (`pipeline_depth > 1`, item 18) and canvas
-sharding (item 22).
+Still to port: canvas sharding (`canvas_shards > 1` raises
+`NotImplementedError` naming ROADMAP.md item 22).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +60,7 @@ from ..utils.timing import (GLOBAL_TRACER as _tracer, Timer,
                             maybe_sync as _msync, set_sync_spans)
 from .lut import CompositeLUT, build_lut, composite_frame_u8
 from .sources import FrameSource
+from .stream import StreamingComposer
 
 log = logging.getLogger(__name__)
 
@@ -73,6 +76,19 @@ def _fit2d(a: torch.Tensor, fill, shape) -> torch.Tensor:
     out = torch.full((H, W), fill, dtype=a.dtype, device=a.device)
     out[:min(h, H), :min(w, W)] = a[:min(h, H), :min(w, W)]
     return out
+
+
+class _Snapshot(NamedTuple):
+    """The state one dispatch reads, taken together under the lock: frame
+    selection and the kernel state come from one registration even while
+    install_lut runs on another thread."""
+    reg: Optional[Registration]
+    lut: Optional[CompositeLUT]
+    tlut: object
+    ftlut: object
+    ft_reg: Optional[Registration]
+    mbt: object
+    mb_reg: Optional[Registration]
 
 
 @dataclass
@@ -143,6 +159,8 @@ class VideoStitcher:
         self._ftlut_reg = None             # the Registration it was built from
         self._mbtlut = None                # (MultibandVideoState, crop_yx)
         self._mbtlut_reg = None            # the Registration it was built from
+        # CUDA event after the live state's build (`_mark_built`)
+        self._ready = None
         self._reg: Optional[Registration] = None
         self._out_shape: Optional[tuple] = None
         self._frame_hw: Optional[tuple] = None
@@ -227,6 +245,7 @@ class VideoStitcher:
                 # reference's does
                 tlut = self._build_tiled(lut, frame_hw) if mode == "lut" \
                     else None
+                self._ready = self._mark_built()
                 self._out_shape = out_shape
                 if reg is not None:
                     self._reg = reg
@@ -238,6 +257,34 @@ class VideoStitcher:
                     self._mbtlut, self._mbtlut_reg = mbtlut, reg
                 self._last_reg_time = time.monotonic()
                 self.registrations += 1
+
+    def _mark_built(self):
+        """Under the lock, before a swap: a CUDA event on the current stream
+        after the new state's build. Every dispatch's stream waits on the
+        event of the state it read (`_snapshot`), so a state built on
+        another thread's stream is never read before its build has finished
+        on the device. The stream first waits on the previous event, so the
+        new one also covers states built on other streams. None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
+        stream = torch.cuda.current_stream(self.device)
+        if self._ready is not None:
+            stream.wait_event(self._ready)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+        return ready
+
+    def _snapshot(self) -> _Snapshot:
+        """The live state, read under the lock; the current stream then
+        waits for its build (`_mark_built`)."""
+        with self._lock:
+            snap = _Snapshot(self._reg, self._lut, self._tlut, self._ftlut,
+                             self._ftlut_reg, self._mbtlut, self._mbtlut_reg)
+            ready = self._ready
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        return snap
 
     def _build_tiled(self, lut: CompositeLUT, frame_hw):
         """The seam-select kernel state of cfg.video.kernel: 'auto' and
@@ -287,6 +334,7 @@ class VideoStitcher:
             ftlut = self._build_feather(reg, tuple(int(x) for x in frame_hw),
                                         out_shape)
             with self._lock:
+                self._ready = self._mark_built()
                 self._ftlut, self._ftlut_reg = ftlut, reg
         return True
 
@@ -302,6 +350,7 @@ class VideoStitcher:
             mbtlut = self._build_multiband(reg,
                                            tuple(int(x) for x in frame_hw))
             with self._lock:
+                self._ready = self._mark_built()
                 self._mbtlut, self._mbtlut_reg = mbtlut, reg
         return True
 
@@ -412,29 +461,45 @@ class VideoStitcher:
         feather blend; 'multiband': the windowed Laplacian blend). In
         'feather' and 'multiband' mode a registration with no state built
         for the mode takes the full blend (`_composite_blend`)."""
-        # one snapshot: frame selection and the kernel state come from the
-        # same registration even if install_lut runs concurrently
-        with self._lock:
-            reg = self._reg
-            lut, tlut = self._lut, self._tlut
-            ftlut, ft_reg = self._ftlut, self._ftlut_reg
-            mbt, mb_reg = self._mbtlut, self._mbtlut_reg
+        out, post, _snap = self._dispatch(frames)
+        if isinstance(out, torch.Tensor):
+            out = out.cpu().numpy()
+        return out if post is None else post(out)
+
+    def _dispatch(self, frames: List[np.ndarray], upload=None):
+        """The device half of `composite()`, shared with the streaming
+        composer (`video/stream.py`): one snapshot of the state, frame
+        selection, the upload (`upload(frames)` -> [N, H, W, 3] uint8 on the
+        device; `_to_device` by default) and the mode's launches, all on the
+        current stream, which first waits for the state's build.
+
+        Returns (panorama, postprocess, snapshot): the [Hp, Wp, 3] uint8
+        panorama on the device, or a host array from the full blend (which
+        is host-synchronous and fits its own output); `_fit_frame` for the
+        feather and multiband outputs, or None (the seam-select LUT is
+        fitted to the frozen shape at install); and the snapshot, which a
+        caller keeps while the launches may still read it."""
+        snap = self._snapshot()
+        upload = upload or self._to_device
         mode = self.cfg.video.compose_mode
-        if mode == "feather" and ftlut is not None:
-            batch = self._to_device(self._select_frames(frames, ft_reg or reg))
-            out = self._feather_planar(batch, ftlut)
-        elif mode == "multiband" and mbt is not None:
-            st, crop_yx = mbt
-            batch = self._to_device(self._select_frames(frames, mb_reg or reg))
+        if mode == "feather" and snap.ftlut is not None:
+            batch = upload(self._select_frames(frames,
+                                               snap.ft_reg or snap.reg))
+            out = self._feather_planar(batch, snap.ftlut)
+        elif mode == "multiband" and snap.mbt is not None:
+            st, crop_yx = snap.mbt
+            batch = upload(self._select_frames(frames,
+                                               snap.mb_reg or snap.reg))
             out = multiband_video_frame(frames_to_planar_i8(batch), st,
                                         crop_yx=crop_yx)
         elif mode == "lut":
-            batch = self._to_device(self._select_frames(frames, reg))
-            out = self._planar_with(batch, lut, tlut)
+            batch = upload(self._select_frames(frames, snap.reg))
+            return planar_to_hwc(self._planar_with(batch, snap.lut,
+                                                   snap.tlut)), None, snap
         else:
-            return self._composite_blend(self._select_frames(frames, reg),
-                                         mode, reg)
-        return self._fit_frame(planar_to_hwc(out).cpu().numpy())
+            return self._composite_blend(self._select_frames(
+                frames, snap.reg), mode, snap.reg), None, snap
+        return planar_to_hwc(out), self._fit_frame, snap
 
     def _composite_blend(self, frames: List[np.ndarray], mode: str,
                          reg: Optional[Registration] = None) -> np.ndarray:
@@ -470,9 +535,8 @@ class VideoStitcher:
     def composite_planar(self, batch: torch.Tensor) -> torch.Tensor:
         """[N, H, W, 3] uint8 on the device -> [3, Hp, Wp] uint8 planar,
         through the seam-select state."""
-        with self._lock:
-            lut, tlut = self._lut, self._tlut
-        return self._planar_with(batch, lut, tlut)
+        snap = self._snapshot()
+        return self._planar_with(batch, snap.lut, snap.tlut)
 
     def _planar_with(self, batch: torch.Tensor, lut, tlut) -> torch.Tensor:
         """Hot path on caller-snapshotted LUT state."""
@@ -490,14 +554,13 @@ class VideoStitcher:
     def composite_feather_planar(self, batch: torch.Tensor) -> torch.Tensor:
         """Feather-blended hot path: [N, H, W, 3] uint8 on the device ->
         [3, Hp, Wp] uint8 planar."""
-        with self._lock:
-            ftlut = self._ftlut
-        if ftlut is None:
+        snap = self._snapshot()
+        if snap.ftlut is None:
             raise RuntimeError(
                 "feather state not built: install a registration "
                 "(load_registration, or install_lut with reg=) with "
                 "compose_mode='feather'")
-        return self._feather_planar(batch, ftlut)
+        return self._feather_planar(batch, snap.ftlut)
 
     @staticmethod
     def _feather_planar(batch: torch.Tensor, ftlut) -> torch.Tensor:
@@ -511,8 +574,8 @@ class VideoStitcher:
         planar layout) on the device. Returns [B, 3, Hp, Wp] uint8, per
         frame set what the single-frame path gives. Served by the feather,
         mat2 and mat kernels."""
-        with self._lock:
-            tlut, ftlut = self._tlut, self._ftlut
+        snap = self._snapshot()
+        tlut, ftlut = snap.tlut, snap.ftlut
         if self.cfg.video.compose_mode == "multiband":
             # never serve seam-select output at multiband quality unasked
             raise RuntimeError(
@@ -552,16 +615,17 @@ class VideoStitcher:
         trigger (reference retry loop :822-826). At exit the loop waits
         for an in-flight re-registration.
 
-        pipeline_depth (default cfg.video.pipeline_depth) must be 1 here:
-        frames in flight (`video/stream.py`) are not ported yet."""
+        pipeline_depth (default cfg.video.pipeline_depth): 1 delivers frame
+        set i before reading i+1 (the reference's hot loop); K > 1 keeps K
+        frame sets in flight through `StreamingComposer`, so on_frame(i)
+        fires up to K-1 frame sets behind ingest while the host copies,
+        launches and device copies of neighbouring frame sets overlap.
+        Every frame set is still delivered once, in order: the tail drains
+        at the end of the stream. stats.compose_s then measures the submit;
+        the composer's out_times the deliveries."""
         period = self.cfg.video.reregister_seconds
         depth = (self.cfg.video.pipeline_depth if pipeline_depth is None
                  else pipeline_depth)
-        if depth > 1:
-            raise NotImplementedError(
-                f"pipeline_depth={depth}: frames in flight (the streaming "
-                f"composer) are not ported yet ({_ROADMAP}, item 18); use "
-                "pipeline_depth=1")
         # re-entrancy: a previous run() set _stop in its finally; a fresh
         # loop needs a live worker
         self._stop.clear()
@@ -592,8 +656,10 @@ class VideoStitcher:
         self._latest_frames = frames
         self._reg_thread = threading.Thread(target=reg_worker, daemon=True)
         self._reg_thread.start()
+        sc = StreamingComposer(self, depth=depth) if depth > 1 else None
         try:
             i = 0
+            delivered = 0
             while max_frames is None or i < max_frames:
                 with Timer() as t_read:
                     if i > 0:
@@ -603,16 +669,24 @@ class VideoStitcher:
                 with self._lock:
                     self._latest_frames = frames
                 with Timer() as t_comp:
-                    pano = self.composite(frames)
+                    pano = (sc.submit(frames) if sc is not None
+                            else self.composite(frames))
                 self.stats.read_s.append(t_read.elapsed)
                 self.stats.compose_s.append(t_comp.elapsed)
                 self.stats.frames += 1
-                if on_frame is not None:
-                    on_frame(pano, i)
+                if pano is not None:
+                    if on_frame is not None:
+                        on_frame(pano, delivered)
+                    delivered += 1
                 if time.monotonic() - self._last_reg_time > period:
                     self._last_reg_time = time.monotonic()  # rearm
                     self._reg_requested.set()
                 i += 1
+            if sc is not None:
+                for pano in sc.flush():      # the in-flight tail
+                    if on_frame is not None:
+                        on_frame(pano, delivered)
+                    delivered += 1
         finally:
             # drain an in-flight re-registration before the worker stops
             deadline = time.monotonic() + 120.0

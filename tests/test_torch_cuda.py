@@ -8,6 +8,7 @@ run without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -25,7 +26,9 @@ from stitchingvideo_tpu_torch.ops import staging
 from stitchingvideo_tpu_torch.ops import window_probe as wp
 from stitchingvideo_tpu_torch.ops.composite_mat import frames_to_planar_i8
 from stitchingvideo_tpu_torch.ops.remap_tiled import remap_tiled
-from stitchingvideo_tpu_torch.video.lut import CompositeLUT, composite_frame_u8
+from stitchingvideo_tpu_torch.video.lut import (CompositeLUT, build_lut,
+                                                composite_frame_u8)
+from stitchingvideo_tpu_torch.video.stream import StreamingComposer
 
 pytestmark = pytest.mark.cuda
 
@@ -966,3 +969,162 @@ def test_float_pyramids_and_multiband_blend_ignore_tf32(dev):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+# -- frames in flight (video/stream.py) ----------------------------------------
+
+# the kernel each mode's dispatch launches once a frame set
+STREAM_KERNEL = {"lut": m2.MAT2_SINGLE, "feather": fe.FEATHER_SINGLE,
+                 "multiband": m2.PIECES_BATCHED}
+
+
+def _stream_registration(seed=0, f_src=150.0):
+    d = multiband_registration(seed, FRAME_HW, step=200, width=260,
+                               canvas_h=128, f_src=f_src)
+    d.pop("frame_hw")
+    return Registration.from_state_dict(d)
+
+
+def _stream_stitcher(mode, reg):
+    cfg = StitchConfig()
+    vs = VideoStitcher(cfg.replace(
+        video=dataclasses.replace(cfg.video, compose_mode=mode)))
+    vs.install_lut(build_lut(reg), FRAME_HW, reg=reg)
+    return vs
+
+
+def _stream_sets(n, seed=8):
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(0, 256, (5,) + FRAME_HW + (3,),
+                              dtype=np.uint8)) for _ in range(n)]
+
+
+class _Replay:
+    def __init__(self, sets):
+        self.sets, self.i = sets, 0
+
+    def read(self):
+        if self.i >= len(self.sets):
+            return None
+        self.i += 1
+        return self.sets[self.i - 1]
+
+
+@pytest.mark.parametrize("mode", ("lut", "feather", "multiband"))
+def test_composer_on_the_card(dev, mode, monkeypatch):
+    """The composer on the card equals the serial composite() bit for bit,
+    in order, at depths 1 and 3; its host slots are pinned, its device
+    slots on the card, and the mode's kernel launches on the composer's own
+    stream, never the default one; run(pipeline_depth=3) equals
+    run(pipeline_depth=1)."""
+    vs = _stream_stitcher(mode, _stream_registration())
+    sets = _stream_sets(6)
+    want = [vs.composite(f) for f in sets]
+    assert all(not np.array_equal(a, b) for a, b in zip(want, want[1:]))
+    kernel, streams = STREAM_KERNEL[mode], []
+    launch = kernel.launch
+
+    def spy(*args):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        launch(*args)
+
+    monkeypatch.setattr(kernel, "launch", spy)
+    default = torch.cuda.default_stream().cuda_stream
+    for depth in (1, 3):
+        streams.clear()
+        sc = StreamingComposer(vs, depth=depth)
+        got = [o for f in sets if (o := sc.submit(f)) is not None]
+        got += sc.flush()
+        assert len(got) == len(sets)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        compute, upload = sc._compute.cuda_stream, sc._upload.cuda_stream
+        assert streams == [compute] * len(sets)
+        assert len({compute, upload, default}) == 3
+        for name in ("in", "out"):
+            assert all(t.is_pinned() for t in sc._rings[name][1])
+        assert all(t.is_cuda for t in sc._rings["in_dev"][1])
+    monkeypatch.undo()
+    runs = {}
+    for depth in (1, 3):
+        v = _stream_stitcher(mode, _stream_registration())
+        runs[depth] = []
+        v.run(_Replay(sets), on_frame=lambda p, i: runs[depth].append((i, p)),
+              pipeline_depth=depth)
+    assert [i for i, _ in runs[3]] == list(range(len(sets)))
+    for (_, a), (_, b), w in zip(runs[1], runs[3], want):
+        np.testing.assert_array_equal(a, w)
+        np.testing.assert_array_equal(b, w)
+
+
+def test_composer_reads_a_state_only_after_its_build(dev, monkeypatch):
+    """50 install_lut calls from another thread while frame sets are in
+    flight. Each build ends with device work on the installing thread's
+    stream (a spin, then the copy of the final gains over zeros), which the
+    composer's stream does not order after by itself. Every delivered
+    panorama equals the composite() of the state it was dispatched with:
+    the dispatch waits for the event recorded after the build."""
+    regs = {"A": _stream_registration(0), "B": _stream_registration(1, 170.)}
+    luts = {k: build_lut(r) for k, r in regs.items()}
+    sets = _stream_sets(4, seed=9)
+    refs = {}
+    for k, r in regs.items():
+        v = _stream_stitcher("lut", r)
+        refs[k] = [v.composite(f) for f in sets]
+    assert not np.array_equal(refs["A"][0], refs["B"][0])
+    vs = _stream_stitcher("lut", regs["A"])
+    build = VideoStitcher._build_tiled
+
+    def slow_build(self, lut, frame_hw):
+        kind, ml = build(self, lut, frame_hw)
+        gc = torch.zeros_like(ml.gc)
+        torch.cuda._sleep(10_000_000)
+        gc.copy_(ml.gc)
+        return kind, dataclasses.replace(ml, gc=gc)
+
+    monkeypatch.setattr(VideoStitcher, "_build_tiled", slow_build)
+    labels = []
+    dispatch = vs._dispatch
+
+    def recording(frames, upload=None):
+        out = dispatch(frames, upload)
+        labels.append("A" if out[2].reg is regs["A"] else "B")
+        return out
+
+    monkeypatch.setattr(vs, "_dispatch", recording)
+    errors = []
+
+    def installs():
+        try:
+            for k in range(50):
+                key = "AB"[(k + 1) % 2]
+                vs.install_lut(luts[key], FRAME_HW, reg=regs[key])
+        except Exception as e:          # surfaced by the assert below
+            errors.append(e)
+
+    installer = threading.Thread(target=installs)
+    sc = StreamingComposer(vs, depth=4)
+    delivered, wrong = 0, []
+
+    def check(pano):
+        nonlocal delivered
+        want = refs[labels[delivered]][delivered % len(sets)]
+        if not np.array_equal(pano, want):
+            wrong.append(delivered)
+        delivered += 1
+
+    installer.start()
+    submitted = 0
+    while (installer.is_alive() or submitted < 8) and submitted < 5000:
+        out = sc.submit(sets[submitted % len(sets)])
+        submitted += 1
+        if out is not None:
+            check(out)
+    for out in sc.flush():
+        check(out)
+    installer.join(timeout=60)
+    assert not installer.is_alive() and not errors, errors
+    assert vs.registrations == 51
+    assert delivered == submitted == len(labels)
+    assert set(labels) == {"A", "B"}
+    assert wrong == [], f"{len(wrong)} of {delivered} panoramas wrong"

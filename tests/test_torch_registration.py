@@ -164,7 +164,8 @@ def test_port_imports_no_jax():
             "stitchingvideo_tpu_torch.seams.graphcut",
             "stitchingvideo_tpu_torch.native.build",
             "stitchingvideo_tpu_torch.models.stitcher",
-            "stitchingvideo_tpu_torch.video.sources"]
+            "stitchingvideo_tpu_torch.video.sources",
+            "stitchingvideo_tpu_torch.video.stream"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
