@@ -91,8 +91,24 @@ What it does, in phases (any failure exits non-zero):
      `composite()` of its frame set, each mode's kernel launched once a
      submit and only on the composers' streams, distinct checksums, and
      `run(pipeline_depth=4)` with one forced re-registration delivering
-     every frame set once, in order, with the output shape frozen.
-  13. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
+     every frame set once, in order, with the output shape frozen. The
+     saved registration file stays on disk for the next phase.
+  13. ingest (`SharedMemorySource`, the producers, the CLI): after a check
+     that /dev/shm holds the rings, five producer processes (the card
+     hidden from them) republish the stitcher phase's 5 x 1080p views into
+     shared-memory rings of 4 slots at 30 fps; `VideoStitcher.run` over
+     `SharedMemorySource` from the stream phase's registration file in
+     'lut' mode at depths 1 and 4, 48 deliveries each; the producers then
+     free-running: `SharedMemorySource.read()` timed alone and `run()` at
+     depth 4; then on paced producers the CLI as a subprocess,
+     `video --mode shm_attach` with the file loaded (60 frames) and from a
+     cold start (30 frames, one registration from the rings' frames);
+     gates: every delivery equal to `composite()` of the views, K2
+     launched once a delivery and bit-exact against its plain version,
+     the CLI's rc 0, frame count and registrations (its `--log_timing`
+     spans show a registration from frames only on the cold start), no
+     ring of the phase left under /dev/shm.
+  14. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
      stitcher phase's 5 x 1080p views through `Stitcher(StitchConfig())
      .stitch` (the OpenCV-faithful path: work-scale registration, block
      gains, graph-cut seams, the int16 multiband blender at full
@@ -112,13 +128,14 @@ What it does, in phases (any failure exits non-zero):
      within 1e-3 with equal masks and `compose_panorama` within one step
      on <= 0.1% of values. The phase runs under PyTorch's default flags
      (cuDNN's TF32 on), not the script's.
-  14. times: each kernel's time beside its bound, its plain version's and,
+  15. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
 
 Inputs are random, made from --seed; nothing is read from disk but the
-checkout itself and the registration file the script wrote.
+checkout itself and the files the script wrote (registrations, the
+producers' views).
 
     python3 chip_smoke.py --ab DIR   # instead of the phases above
 
@@ -1837,24 +1854,26 @@ def phase_stream(C):
     sets = [[np.roll(v, STITCH_ROLL * b, axis=1) for v in views]
             for b in range(STREAM_SETS)]
     # saved and loaded once (each load decompresses ~2 s of arrays); the
-    # loaded registration is installed in the other two modes
+    # loaded registration is installed in the other two modes. The file
+    # stays on disk for the ingest phase, which removes it
     stitchers, load_s = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "registration.npz")
+    C.registration_dir = tempfile.TemporaryDirectory()
+    path = C.registration_path = os.path.join(C.registration_dir.name,
+                                              "registration.npz")
+    t0 = time.perf_counter()
+    C.stitch_vs.save_registration(path)
+    save_s = time.perf_counter() - t0
+    for mode in ("lut", "feather", "multiband"):
+        v = C.VideoStitcher(video_cfg(C, compose_mode=mode))
         t0 = time.perf_counter()
-        C.stitch_vs.save_registration(path)
-        save_s = time.perf_counter() - t0
-        for mode in ("lut", "feather", "multiband"):
-            v = C.VideoStitcher(video_cfg(C, compose_mode=mode))
-            t0 = time.perf_counter()
-            if mode == "lut":
-                v.load_registration(path)
-            else:
-                first = stitchers["lut"]
-                v.install_lut(first._lut, first._frame_hw, reg=first._reg)
-            torch.cuda.synchronize()
-            load_s[mode] = time.perf_counter() - t0
-            stitchers[mode] = v
+        if mode == "lut":
+            v.load_registration(path)
+        else:
+            first = stitchers["lut"]
+            v.install_lut(first._lut, first._frame_hw, reg=first._reg)
+        torch.cuda.synchronize()
+        load_s[mode] = time.perf_counter() - t0
+        stitchers[mode] = v
     planar1 = C.frames_to_planar_i8(
         torch.from_numpy(np.stack(sets[0])).to(dev))
     default = torch.cuda.default_stream().cuda_stream
@@ -2020,6 +2039,269 @@ def phase_stream(C):
           f"order with {vs.registrations - regs0} re-registration(s), shape "
           f"{tuple(shape0)} kept, {run_s:.2f} s", flush=True)
     C.stitch_vs = None
+    return rows, metrics
+
+
+# -- ingest: producer processes, shared-memory rings, the CLI ---------------
+
+# the rings' slots (the reference producers' default); the cameras' rate
+# (the reference's cameras, spawn_replay_producer's default); deliveries a
+# timed run() and its depths; reads timed alone; the CLI's frames with a
+# loaded registration and from a cold start
+INGEST_SLOTS, INGEST_FPS = 4, 30.0
+INGEST_DELIVERIES, INGEST_DEPTHS, INGEST_READS = 48, (1, 4), 32
+INGEST_CLI_FRAMES, INGEST_COLD_FRAMES = 60, 30
+# the CLI's flags for the product rig: the real-time driver's warp and
+# confidence (with them the CLI's config is StitchConfig()'s)
+INGEST_CLI = ["--warp", "cylindrical", "--conf_thresh", "0.6"]
+
+# a producer process: creates the ring argv[1] of argv[4] slots and
+# republishes the view argv[2] (an .npy) into it with increasing seq, paced
+# at argv[3] fps; SIGUSR1 toggles free-running (no sleep)
+PRODUCER = """
+import signal, sys, time
+import numpy as np
+from stitchingvideo_tpu_torch.video.sharemem import ShmRing
+name, view, fps = sys.argv[1], np.load(sys.argv[2]), float(sys.argv[3])
+free = [False]
+signal.signal(signal.SIGUSR1, lambda *a: free.__setitem__(0, not free[0]))
+ring = ShmRing.create(name, view.shape[1], view.shape[0], 3, int(sys.argv[4]))
+seq, t_next = 0, time.monotonic()
+while True:
+    ring.publish(view, seq)
+    seq += 1
+    if free[0]:
+        t_next = time.monotonic()
+    else:
+        t_next += 1.0 / fps
+        time.sleep(max(0.0, t_next - time.monotonic()))
+"""
+
+
+def ingest_run(vs, names, depth: int, want) -> dict:
+    """run() over a SharedMemorySource of the rings at `depth`: every one of
+    INGEST_DELIVERIES deliveries equal to `want`; the delivery rate (the
+    deliveries made while frames were read, the first excepted, over the
+    time from the first: the depth - 1 flushed at the end of the stream
+    come at once), run()'s wall time, and the reads' time, the first read
+    (before the loop) left out."""
+    from stitchingvideo_tpu_torch.video.sources import SharedMemorySource
+    src = SharedMemorySource(names, timeout_s=5.0)
+    got, t_out, n = [], [], INGEST_DELIVERIES
+
+    def on_frame(p, i):
+        t_out.append(time.perf_counter())
+        got.append(p)
+
+    reads0 = len(vs.stats.read_s)
+    t0 = time.perf_counter()
+    try:
+        vs.run(src, on_frame=on_frame, max_frames=n, pipeline_depth=depth)
+    finally:
+        src.close()
+    wall = time.perf_counter() - t0
+    bad = [k for k, g in enumerate(got) if not np.array_equal(g, want)]
+    if len(got) != n or bad:
+        fail(f"ingest depth {depth}: {len(got)} of {n} deliveries, "
+             f"{bad} differ from composite() of the rings' frame set")
+    k = n - depth
+    return {"fps": k / (t_out[k] - t_out[0]), "wall_s": wall,
+            "read": p50_p95(np.asarray(vs.stats.read_s[reads0 + 1:]) * 1e3)}
+
+
+def ingest_cli(argv, frames: int, from_frames: bool) -> dict:
+    """`python -m stitchingvideo_tpu_torch.cli video ...` as a subprocess:
+    rc 0, `frames` frames, one registration (a loaded file counts as one in
+    both packages), and a registration from the rings' frames (the
+    tracer's `find_features` span, printed by --log_timing) only when
+    `from_frames`."""
+    import re
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "stitchingvideo_tpu_torch.cli",
+                        "video", *argv, "--log_timing"], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the CLI exited rc={r.returncode}: {r.stderr[-3000:]}")
+    m = re.search(r"frames: (\d+), fps: ([0-9.]+), registrations: (\d+)",
+                  r.stdout)
+    spans = json.loads(r.stdout[r.stdout.index("{"):])
+    got = spans.get("find_features", {}).get("count", 0)
+    if m is None or int(m[1]) != frames or int(m[3]) != 1 \
+            or got != int(from_frames):
+        fail(f"the CLI printed {r.stdout[:400]!r}: want {frames} frames, "
+             f"1 registration, {int(from_frames)} from frames (got {got})")
+    return {"frames": frames, "printed_fps": float(m[2]), "wall_s": wall,
+            "spans_s": {k: v["total_s"] for k, v in spans.items()}}
+
+
+def phase_ingest(C):
+    """The product's real-time entry point on the card: five producer
+    processes republish the stitcher phase's 5 x 1080p views into
+    shared-memory rings (paced at 30 fps, then free-running);
+    `VideoStitcher.run(SharedMemorySource)` from the stream phase's saved
+    registration in 'lut' mode at depths 1 and 4, every delivery equal to
+    composite() of the views and K2 launched once a delivery; the reads'
+    time; then the CLI (`video --mode shm_attach`) as a subprocess, with the
+    registration loaded and from a cold start. No ring is left behind."""
+    import signal
+    import uuid
+    torch, m2, dev = C.torch, C.m2, C.dev
+    from stitchingvideo_tpu_torch.native import build as native_build
+    from stitchingvideo_tpu_torch.video.sharemem import ShmRing
+    from stitchingvideo_tpu_torch.video.sources import (SharedMemorySource,
+                                                        producer_env)
+    t_phase = time.perf_counter()
+    views = C.stitch_scene[0]
+    h, w = views[0].shape[:2]
+    # each ring: its slots, the slots' sequence stamps and the header
+    need = len(views) * (h * w * 3 * INGEST_SLOTS + 4096)
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    if free < need:
+        fail(f"ingest: /dev/shm has {free} bytes free; {len(views)} rings "
+             f"of {INGEST_SLOTS} slots of {h}x{w}x3 need {need}")
+    t0 = time.perf_counter()
+    native_build.load_sharemem()     # once, before the producers start
+    metrics = {"dev_shm_free_bytes": free, "rings_bytes": need,
+               "ring_library_s": time.perf_counter() - t0,
+               "fps_paced": INGEST_FPS, "deliveries": INGEST_DELIVERIES}
+    tag = uuid.uuid4().hex[:8]
+    names = [f"/svt_smoke_{tag}_{k}" for k in range(len(views))]
+    procs, rows = [], []
+    tmp = tempfile.TemporaryDirectory()
+
+    def toggle_free_running():
+        for p in procs:
+            p.send_signal(signal.SIGUSR1)
+
+    try:
+        t0 = time.perf_counter()
+        for k, (n, v) in enumerate(zip(names, views)):
+            path = os.path.join(tmp.name, f"view{k}.npy")
+            np.save(path, v)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", PRODUCER, n, path, str(INGEST_FPS),
+                 str(INGEST_SLOTS)], env=producer_env(), cwd=ROOT,
+                stderr=subprocess.PIPE, text=True))
+        for n, p in zip(names, procs):
+            while True:
+                try:
+                    ShmRing.open(n).close()
+                    break
+                except OSError:
+                    if p.poll() is not None:
+                        fail(f"ingest: the producer of {n} exited "
+                             f"rc={p.returncode}: {p.stderr.read()[-2000:]}")
+                    if time.perf_counter() - t0 > 180:
+                        fail(f"ingest: no ring {n} after 180 s")
+                    time.sleep(0.05)
+        metrics["producers_up_s"] = time.perf_counter() - t0
+
+        vs = C.VideoStitcher(video_cfg(C, compose_mode="lut",
+                                       reregister_seconds=1e9))
+        t0 = time.perf_counter()
+        vs.load_registration(C.registration_path)
+        torch.cuda.synchronize()
+        metrics["load_registration_s"] = time.perf_counter() - t0
+        if vs._tlut is None or vs._tlut[0] != "mat2":
+            fail("ingest: 'lut' mode did not build mat2")
+        want = vs.composite(list(views))
+
+        # the main path, counted: paced producers at depths 1 and 4
+        C.reset_counts()
+        for d in INGEST_DEPTHS:
+            metrics[f"paced_depth{d}"] = ingest_run(vs, names, d, want)
+        torch.cuda.synchronize()
+        launches = C.read_counts()
+        k2 = launches[m2.MAT2_SINGLE.name]
+        if k2 != INGEST_DELIVERIES * len(INGEST_DEPTHS) \
+                or sum(launches.values()) != k2:
+            fail(f"ingest: launches {launched(launches)} for "
+                 f"{INGEST_DELIVERIES * len(INGEST_DEPTHS)} deliveries")
+        metrics["launches"] = launched(launches)
+        print("ingest paced (30 fps producers): " + "; ".join(
+            f"depth {d}: {metrics[f'paced_depth{d}']['fps']:.1f} fps, read "
+            f"p50/p95 {metrics[f'paced_depth{d}']['read']['p50_ms']:.2f}/"
+            f"{metrics[f'paced_depth{d}']['read']['p95_ms']:.2f} ms"
+            for d in INGEST_DEPTHS) + f"; {m2.MAT2_SINGLE.name} launched "
+            f"{k2} times", flush=True)
+
+        # free-running producers: the reads alone, then the loop at depth 4
+        toggle_free_running()
+        src = SharedMemorySource(names, timeout_s=5.0)
+        src.read()
+        seq0 = [r.last_seq.value for r in src.rings]
+        ts, t0 = [], time.perf_counter()
+        for _ in range(INGEST_READS):
+            t = time.perf_counter()
+            if src.read() is None:
+                fail("ingest: a free-running producer timed out")
+            ts.append((time.perf_counter() - t) * 1e3)
+        dt = time.perf_counter() - t0
+        metrics["free_read"] = p50_p95(ts)
+        metrics["free_publish_fps"] = [
+            (r.last_seq.value - s) / dt for r, s in zip(src.rings, seq0)]
+        src.close()
+        metrics["free_depth4"] = ingest_run(vs, names, 4, want)
+        print(f"ingest free-running: SharedMemorySource.read() of "
+              f"{len(views)} x {h}x{w} p50/p95 "
+              f"{metrics['free_read']['p50_ms']:.2f}/"
+              f"{metrics['free_read']['p95_ms']:.2f} ms (producers at "
+              f"{min(metrics['free_publish_fps']):.0f}-"
+              f"{max(metrics['free_publish_fps']):.0f} fps seen); run() "
+              f"depth 4: {metrics['free_depth4']['fps']:.1f} fps", flush=True)
+
+        # the CLI on paced producers (the cameras' rate): the saved
+        # registration, then a cold start (a registration from the rings)
+        toggle_free_running()
+        argv = ["--mode", "shm_attach", *names, "--pipeline_depth", "4",
+                "--reregister_seconds", "1e9", "--output", "", *INGEST_CLI]
+        metrics["cli_loaded"] = ingest_cli(
+            argv + ["--frames", str(INGEST_CLI_FRAMES),
+                    "--load_registration", C.registration_path],
+            INGEST_CLI_FRAMES, from_frames=False)
+        metrics["cli_cold"] = ingest_cli(
+            argv + ["--frames", str(INGEST_COLD_FRAMES)],
+            INGEST_COLD_FRAMES, from_frames=True)
+        print(f"ingest CLI: {INGEST_CLI_FRAMES} frames from the saved "
+              f"registration in {metrics['cli_loaded']['wall_s']:.2f} s "
+              f"(printed {metrics['cli_loaded']['printed_fps']:.1f} fps); "
+              f"cold start, {INGEST_COLD_FRAMES} frames and one "
+              f"registration in {metrics['cli_cold']['wall_s']:.2f} s "
+              f"(its spans {metrics['cli_cold']['spans_s']})", flush=True)
+
+        # K2 on this registration against its plain version (not counted)
+        ml = vs._tlut[1]
+        planar1 = C.frames_to_planar_i8(
+            torch.from_numpy(np.stack(views)).to(dev))
+        fn, plain = (lambda: m2.composite_mat2_planar(planar1, ml),
+                     lambda: m2.composite_mat2_plain(planar1[None], ml)[0])
+        err = float((fn().float() - plain().float()).abs().max())
+        rows.append(kernel_row(
+            m2.MAT2_SINGLE, "composite_mat2.cu", "composite_mat2.py:388", k2,
+            err, event_ms(torch, fn, reps=10, warmup=2),
+            event_ms(torch, plain, reps=2, warmup=1),
+            *mat2_bound(mat2_needs(torch, ml, m2), ml.stage_table.numel() * 4,
+                        ml.pano_hw[0] * ml.pano_hw[1], 1),
+            library_ms=None, batch=1, path="ingest (lut)"))
+    finally:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        for n in names:
+            try:
+                ShmRing.open(n).close(unlink=True)
+            except OSError:
+                pass
+        tmp.cleanup()
+        C.registration_dir.cleanup()
+    left = sorted(f for f in os.listdir("/dev/shm")
+                  if f.startswith(f"svt_smoke_{tag}"))
+    if left:
+        fail(f"ingest: rings left under /dev/shm: {left}")
+    metrics["phase_s"] = time.perf_counter() - t_phase
     return rows, metrics
 
 
@@ -2552,7 +2834,7 @@ def main() -> None:
               ("multiband", phase_multiband), ("window_probe", phase_probe),
               ("registration", phase_registration),
               ("stitcher", phase_stitcher), ("stream", phase_stream),
-              ("still", phase_still))
+              ("ingest", phase_ingest), ("still", phase_still))
     if args.ab:
         phases = (("ab", lambda C: phase_ab(C, args.ab)),)
     for name, phase in phases:

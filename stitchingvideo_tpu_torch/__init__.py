@@ -19,8 +19,17 @@ multiband, the `Registration`) directly. The still path runs too:
 default, or `estimate_transform` + `compose_panorama`), and in feather or
 multiband mode `VideoStitcher.composite` serves the full blend for a
 registration that has no state of the mode.
+Ingest and output are the reference's too: frame sources over still
+replays, frame directories, video files and URLs (cv2) and shared-memory
+rings (`SharedMemorySource`, fed by producer processes through
+`native/sharemem.cpp`, the JAX package's ring layout); the sinks of
+`video/sink.py`; the CLI, `python -m stitchingvideo_tpu_torch.cli`
+(`stitch`, and `video` with `--mode replay|dirs|videos|shm|shm_attach`);
+and the chessboard calibration, `python -m
+stitchingvideo_tpu_torch.tools.calibrate`.
 
-The package imports torch and numpy only. CUDA sources are compiled with
+The package imports torch and numpy only (`cv2` and `imageio` inside the
+functions that read or write files). CUDA sources are compiled with
 nvcc on first use, so the package imports on a machine without a GPU; its
 entry points run on `cuda` unless the caller passes `device="cpu"`.
 """
@@ -39,16 +48,20 @@ from .register.pipeline import RegistrationResult, register_images
 from .video.lut import (CompositeLUT, build_lut, composite_frame,
                         composite_frame_u8)
 from .video.runtime import FrameStats, VideoStitcher
-from .video.sources import FrameSource, ReplaySource, SyntheticSource
+from .video.sources import (DirectorySource, FrameSource, ReplaySource,
+                            SharedMemorySource, SyntheticSource,
+                            VideoFileSource)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Cameras", "CompositeLUT", "ComposeConfig", "FeatureConfig", "FrameStats",
+    "Cameras", "CompositeLUT", "ComposeConfig", "DirectorySource",
+    "FeatureConfig", "FrameStats",
     "MatchConfig", "MultibandVideoState", "ParallelConfig", "Registration",
     "RegistrationConfig", "RegistrationResult",
     "ScaleConfig", "StitchConfig", "Stitcher", "UndistortConfig", "VideoConfig",
-    "FrameSource", "ReplaySource", "SyntheticSource",
+    "FrameSource", "ReplaySource", "SharedMemorySource", "SyntheticSource",
+    "VideoFileSource",
     "VideoStitcher", "build_lut", "build_multiband_state",
     "cli_default_config", "composite_frame", "composite_frame_u8",
     "multiband_video_frame", "multiband_video_frames_batched",

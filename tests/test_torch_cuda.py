@@ -1128,3 +1128,96 @@ def test_composer_reads_a_state_only_after_its_build(dev, monkeypatch):
     assert delivered == submitted == len(labels)
     assert set(labels) == {"A", "B"}
     assert wrong == [], f"{len(wrong)} of {delivered} panoramas wrong"
+
+
+# -- ingest: shared-memory rings into the hot loop -----------------------------
+
+class _Publisher:
+    """One thread republishing a fixed frame set into 5 new rings, seq
+    increasing, until stopped (the ring library releases the interpreter
+    lock while it copies)."""
+
+    def __init__(self, frames, tag):
+        from stitchingvideo_tpu_torch.video.sharemem import ShmRing
+        import uuid
+        self.names = [f"/svt_card_{tag}_{uuid.uuid4().hex[:8]}_{k}"
+                      for k in range(len(frames))]
+        self.rings = [ShmRing.create(n, FRAME_HW[1], FRAME_HW[0], 3, 4)
+                      for n in self.names]
+        self.frames, self.stop = frames, threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        seq = 0
+        while not self.stop.is_set():
+            for r, f in zip(self.rings, self.frames):
+                r.publish(f, seq)
+            seq += 1
+            self.stop.wait(0.002)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        assert not self.thread.is_alive()
+        for r in self.rings:
+            r.close(unlink=True)
+
+
+@pytest.mark.parametrize("mode", ("lut", "feather"))
+def test_shared_memory_source_into_run_on_the_card(dev, mode):
+    """SharedMemorySource -> run() at depths 1 and 3: every panorama equals
+    composite() of the frame set the rings carry."""
+    from stitchingvideo_tpu_torch.video.sources import SharedMemorySource
+    vs = _stream_stitcher(mode, _stream_registration())
+    frames = _stream_sets(1, seed=12)[0]
+    want = vs.composite(frames)
+    pub = _Publisher(frames, mode)
+    try:
+        for depth in (1, 3):
+            src = SharedMemorySource(pub.names, timeout_s=5.0)
+            got = []
+            vs.run(src, on_frame=lambda p, i: got.append((i, p)),
+                   max_frames=8, pipeline_depth=depth)
+            src.close()
+            assert [i for i, _ in got] == list(range(8))
+            for _, p in got:
+                np.testing.assert_array_equal(p, want)
+    finally:
+        pub.close()
+
+
+def test_cli_shm_attach_on_the_card(dev, tmp_path, monkeypatch, capsys):
+    """`cli.main(['video', '--mode', 'shm_attach', ...])` on the card from a
+    saved registration: every panorama equals composite() of the frame set
+    the rings carry, and the run stops at --frames."""
+    from stitchingvideo_tpu_torch import cli
+    from stitchingvideo_tpu_torch.video import sink as sink_mod
+    vs = _stream_stitcher("lut", _stream_registration())
+    path = str(tmp_path / "reg.npz")
+    vs.save_registration(path)
+    ref = VideoStitcher(StitchConfig())
+    ref.load_registration(path)       # the CLI's state, cropped as loaded
+    frames = _stream_sets(1, seed=13)[0]
+    want = ref.composite(frames)
+    got = []
+
+    class Keep(sink_mod.FrameSink):
+        def write(self, frame, index):
+            got.append((index, frame))
+            self.frames_written += 1
+
+    monkeypatch.setattr(sink_mod, "make_sink", lambda *a, **kw: Keep())
+    pub = _Publisher(frames, "cli")
+    try:
+        rc = cli.main(["video", *pub.names, "--mode", "shm_attach",
+                       "--load_registration", path, "--frames", "6",
+                       "--pipeline_depth", "3", "--reregister_seconds",
+                       "1e9", "--output", ""])
+    finally:
+        pub.close()
+    assert rc == 0
+    assert "frames: 6," in capsys.readouterr().out
+    assert [i for i, _ in got] == list(range(6))
+    for _, p in got:
+        np.testing.assert_array_equal(p, want)

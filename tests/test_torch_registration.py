@@ -118,8 +118,9 @@ def test_default_device_needs_cuda(entry, tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in JAX or the JAX
-    package, in a fresh interpreter."""
+    """Every module of the port imports without pulling in JAX, the JAX
+    package, cv2 or imageio, in a fresh interpreter: the modules listed and
+    every module found in the package."""
     mods = ["stitchingvideo_tpu_torch", "stitchingvideo_tpu_torch.config",
             "stitchingvideo_tpu_torch.device",
             "stitchingvideo_tpu_torch.models.camera",
@@ -165,11 +166,28 @@ def test_port_imports_no_jax():
             "stitchingvideo_tpu_torch.native.build",
             "stitchingvideo_tpu_torch.models.stitcher",
             "stitchingvideo_tpu_torch.video.sources",
-            "stitchingvideo_tpu_torch.video.stream"]
+            "stitchingvideo_tpu_torch.video.stream",
+            "stitchingvideo_tpu_torch.ops.pyramid",
+            "stitchingvideo_tpu_torch.ops.pyramid_int",
+            "stitchingvideo_tpu_torch.blend.feather",
+            "stitchingvideo_tpu_torch.blend.multiband_cv",
+            "stitchingvideo_tpu_torch.photometric.exposure_cv",
+            "stitchingvideo_tpu_torch.models.compose_cv",
+            "stitchingvideo_tpu_torch.video.sharemem",
+            "stitchingvideo_tpu_torch.video.producer",
+            "stitchingvideo_tpu_torch.video.sink",
+            "stitchingvideo_tpu_torch.cli",
+            "stitchingvideo_tpu_torch.tools.calibrate"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import pkgutil, stitchingvideo_tpu_torch as P\n"
+            "found = [m.name for m in pkgutil.walk_packages(\n"
+            "    P.__path__, 'stitchingvideo_tpu_torch.')]\n"
+            "for m in found: importlib.import_module(m)\n"
+            "assert len(found) > 60, found\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'cv2', 'stitchingvideo_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'cv2', 'imageio', "
+            "'stitchingvideo_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
