@@ -76,7 +76,21 @@ What it does, in phases (any failure exits non-zero):
      with one forced re-registration delivers every frame in order, with
      the frame times during and outside the re-registration; and the
      reduced scene registered on the card and on the CPU must agree.
-  12. stream (`StreamingComposer`, `run(pipeline_depth > 1)`): the stitcher
+  12. shard (`VideoStitcher(cfg, mesh=...)`, `parallel/`): the sharded
+     compose over 2 and 4 canvas bands of a mesh that lists the card once a
+     band, on the stitcher phase's registration (865 x 6015 out), which the
+     stream phase later re-registers, in 'lut' (K2 a band for `composite`,
+     K1 a band for the micro-batch), 'feather' (K4) and 'multiband' (the
+     pieces kernel's single entry a band), and on
+     the mat2 cell's poisoned LUT (K2/K1) and clean LUT under kernel='mat'
+     (K5); gates: `composite` and a micro-batch of 4 frame sets equal to the
+     single-device stitcher's bit for bit (multiband: median 0, >= 99.9%
+     within 2), each kernel launched once a band a call, the single-frame
+     kernel on the band streams, every band's launch bit-exact against its
+     plain version; a frame set's device path and the micro-batch per frame
+     set, sharded beside one device. A box with several cards is not
+     exercised: the card is listed once a band.
+  13. stream (`StreamingComposer`, `run(pipeline_depth > 1)`): the stitcher
      phase's registration saved, loaded into one `VideoStitcher` and
      installed from it into one of each other mode; the stages of a
      streamed frame set on the host and the card, each alone;
@@ -93,7 +107,7 @@ What it does, in phases (any failure exits non-zero):
      `run(pipeline_depth=4)` with one forced re-registration delivering
      every frame set once, in order, with the output shape frozen. The
      saved registration file stays on disk for the next phase.
-  13. ingest (`SharedMemorySource`, the producers, the CLI): after a check
+  14. ingest (`SharedMemorySource`, the producers, the CLI): after a check
      that /dev/shm holds the rings, five producer processes (the card
      hidden from them) republish the stitcher phase's 5 x 1080p views into
      shared-memory rings of 4 slots at 30 fps; `VideoStitcher.run` over
@@ -108,7 +122,7 @@ What it does, in phases (any failure exits non-zero):
      the CLI's rc 0, frame count and registrations (its `--log_timing`
      spans show a registration from frames only on the cold start), no
      ring of the phase left under /dev/shm.
-  14. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
+  15. still (`Stitcher.stitch`, `compose_panorama`, the full blend): the
      stitcher phase's 5 x 1080p views through `Stitcher(StitchConfig())
      .stitch` (the OpenCV-faithful path: work-scale registration, block
      gains, graph-cut seams, the int16 multiband blender at full
@@ -128,7 +142,7 @@ What it does, in phases (any failure exits non-zero):
      within 1e-3 with equal masks and `compose_panorama` within one step
      on <= 0.1% of values. The phase runs under PyTorch's default flags
      (cuDNN's TF32 on), not the script's.
-  15. times: each kernel's time beside its bound, its plain version's and,
+  16. times: each kernel's time beside its bound, its plain version's and,
      where one PyTorch call computes the same function, that call's; printed
      as a `{"kernels": [...]}` line and a `{"metrics": ...}` line, then the
      card line, then the last line `{"ok": true, "device": {...}}`.
@@ -459,6 +473,25 @@ def mat2_bound(need: dict, table_bytes: int, pano_px: int, B: int):
     return bound(B * need["frame_bytes"] + need["lut_bytes"] + table_bytes
                  + B * 3 * pano_px,
                  B * 3 * (14 * need["kernel_px"] + 16 * need["fallback_px"]))
+
+
+def mat_needs(torch, ml) -> dict:
+    """What the mat (K5) function must read for this LUT, for its bound:
+    the frame sectors its taps touch; tap_cw of every pixel, tap_xy and gc
+    of a kernel pixel."""
+    n_kern = int((ml.tap_cw >= 0).sum())
+    return {"frame_bytes": sector_bytes(
+                torch, [int_taps(ml.fields(), ml.frame_hw)], ml.frame_hw),
+            "lut_bytes": 4 * ml.tap_cw.numel() + 8 * n_kern,
+            "kernel_px": n_kern}
+
+
+def mat_bound(need: dict, table_bytes: int, pano_px: int, B: int):
+    """K5's least time for B frame sets (`need` from `mat_needs`): the frame
+    sectors, B times; the LUT as read and the staging table; B*3 output
+    planes; ~14 operations a kernel pixel, channel and frame set."""
+    return bound(B * need["frame_bytes"] + need["lut_bytes"] + table_bytes
+                 + B * 3 * pano_px, B * 3 * 14 * need["kernel_px"])
 
 
 def pieces_bound(need: dict, table_bytes: int, npix: int, B: int):
@@ -806,19 +839,8 @@ def phase_mat(C):
     oracle = C.composite_frame_u8(frames_d, vs._lut).permute(2, 0, 1)
     gather_gate(got1, oracle, 4, "mat")
 
-    Hp, Wp = ml.pano_hw
-    npix = Hp * Wp
-    n_kern = int((ml.tap_cw >= 0).sum())
-    frame_bytes = sector_bytes(torch, [int_taps(ml.fields(), ml.frame_hw)],
-                               ml.frame_hw)
-    lut_bytes = 4 * npix + 8 * n_kern     # tap_cw; tap_xy, gc where covered
-
-    def mat_bound(B):
-        # the frame sectors, B times; the LUT as read and the staging
-        # table; B*3 output planes
-        return bound(B * frame_bytes + lut_bytes + staging["table_bytes"]
-                     + B * 3 * npix, B * 3 * 14 * n_kern)
-
+    need = mat_needs(torch, ml)
+    npix = ml.pano_hw[0] * ml.pano_hw[1]
     rows = []
     for k, B, err, fn in (
             (mat.MAT_SINGLE, 1, err1,
@@ -831,7 +853,7 @@ def phase_mat(C):
             err, event_ms(torch, fn, reps=10, warmup=2),
             event_ms(torch, lambda: mat.composite_mat_plain(planar, ml),
                      reps=2, warmup=1),
-            *mat_bound(B),
+            *mat_bound(need, staging["table_bytes"], npix, B),
             # no one PyTorch call computes the integer-weight gather
             library_ms=None, batch=B, direct_blocks=staging["direct_blocks"],
             stage_bytes=staging["stage_bytes"],
@@ -843,8 +865,7 @@ def phase_mat(C):
         "b1_latency_device": latency(
             torch, lambda: vs.composite_planar(frames_d), 20),
         "install_lut_s": install_s, "staging": staging,
-        "needs": {"frame_bytes": frame_bytes, "lut_bytes": lut_bytes,
-                  "kernel_px": n_kern},
+        "needs": need,
     }
     print("mat: kernel outputs bit-exact against the plain version and "
           "against mat2, batched == single; staging table == mat2's",
@@ -2624,6 +2645,252 @@ def still_under_default_flags(C):
     return [], metrics
 
 
+# -- canvas bands on one card: the sharded compose ---------------------------
+
+SHARD_BANDS = (2, 4)
+SHARD_B = 4                  # frame sets of the shard phase's micro-batch
+
+
+def shard_cells(C):
+    """(cell, mode, video config, install, frames, planar micro-batch,
+    kernels) of the shard phase: the stitcher phase's registration in three
+    modes, the mat2 cell's poisoned LUT and its clean LUT under 'mat'."""
+    torch, m2, mat, fe, dev = C.torch, C.m2, C.mat, C.fe, C.dev
+    src = C.stitch_vs
+    views = C.stitch_scene[0]
+    reg_frames = [np.roll(v, STITCH_ROLL * 3, axis=1) for v in views]
+    reg_planar = C.frames_to_planar_i8(torch.from_numpy(np.stack(
+        [np.stack([np.roll(v, STITCH_ROLL * b, axis=1) for v in views])
+         for b in range(SHARD_B)])).to(dev))
+    poisoned = C.CompositeLUT(*(torch.from_numpy(a) for a in
+                                synthetic_lut(C.seed, poison=True)))
+
+    def from_reg(v):
+        v.install_lut(src._lut, src._frame_hw, reg=src._reg)
+
+    def lut_of(lut):
+        return lambda v: v.install_lut(lut, FRAME_HW)
+
+    cell_planar = C.planar32[:SHARD_B]
+    return (
+        ("stitcher", "lut", {}, from_reg, reg_frames, reg_planar,
+         (m2.MAT2_SINGLE, m2.MAT2_BATCHED)),
+        ("stitcher", "feather", {"compose_mode": "feather"}, from_reg,
+         reg_frames, reg_planar, (fe.FEATHER_SINGLE, fe.FEATHER_BATCHED)),
+        ("stitcher", "multiband", {"compose_mode": "multiband"}, from_reg,
+         reg_frames, reg_planar, (m2.PIECES_SINGLE,)),
+        ("mat2", "lut", {}, lut_of(poisoned), C.frames, cell_planar,
+         (m2.MAT2_SINGLE, m2.MAT2_BATCHED)),
+        ("mat2", "mat", {"kernel": "mat"}, lut_of(C.clean_lut), C.frames,
+         cell_planar, (mat.MAT_SINGLE, mat.MAT_BATCHED)))
+
+
+def shard_state(vs, mode):
+    """The sharded state a stitcher holds in `mode` (the multiband piece
+    groups, or the mode's kernel state cut into canvas bands), or fail."""
+    from stitchingvideo_tpu_torch.parallel.compose_multiband import \
+        ShardedMultiband
+    from stitchingvideo_tpu_torch.parallel.mesh import Banded
+    if mode == "multiband":
+        st, want = vs._mbtlut and vs._mbtlut[0], ShardedMultiband
+    else:
+        held = vs._ftlut if mode == "feather" else vs._tlut
+        kind = {"feather": "fmat", "mat": "mat"}.get(mode, "mat2")
+        st, want = held and held[0] == kind and held[1], Banded
+    if not isinstance(st, want):
+        fail(f"shard: {mode} built no sharded state")
+    return st
+
+
+def shard_kernels(C, mode, st, planar):
+    """Per kernel of the mode: (launch one band, its plain version, the
+    band's bound) for band b, and the batch each takes."""
+    torch, m2, mat, fe = C.torch, C.m2, C.mat, C.fe
+    one = planar[:1]
+    if mode == "multiband":
+        def bnd(b, B):
+            w = st.warp[b]
+            return pieces_bound(mat2_needs(torch, w, m2),
+                                w.stage_table.numel() * 4,
+                                w.pano_hw[0] * w.pano_hw[1], B)
+        return [(lambda b: m2.composite_mat2_planar_pieces(
+                    one[0], st.warp[b], st.pd),
+                 lambda b: m2.composite_mat2_pieces_plain(
+                     one, st.warp[b], st.pd)[0], bnd, 1, st.warp)]
+    bands = st.bands
+    if mode == "feather":
+        def bnd(b, B):
+            return feather_bound(feather_needs(torch, m2, bands[b]),
+                                 bands[b].stage_table.numel() * 4, B)
+        return [(lambda b: fe.composite_feather_planar(one[0], bands[b]),
+                 lambda b: fe.composite_feather_plain(one, bands[b])[0],
+                 bnd, 1, bands),
+                (lambda b: fe.composite_feather_planar_batched(planar,
+                                                               bands[b]),
+                 lambda b: fe.composite_feather_plain(planar, bands[b]),
+                 bnd, SHARD_B, bands)]
+    if mode == "mat":
+        def bnd(b, B):
+            ml = bands[b]
+            return mat_bound(mat_needs(torch, ml), ml.stage_table.numel() * 4,
+                             ml.pano_hw[0] * ml.pano_hw[1], B)
+        return [(lambda b: mat.composite_mat_planar(one[0], bands[b]),
+                 lambda b: mat.composite_mat_plain(one, bands[b])[0],
+                 bnd, 1, bands),
+                (lambda b: mat.composite_mat_planar_batched(planar,
+                                                            bands[b]),
+                 lambda b: mat.composite_mat_plain(planar, bands[b]),
+                 bnd, SHARD_B, bands)]
+
+    def bnd(b, B):
+        ml = bands[b]
+        return mat2_bound(mat2_needs(torch, ml, m2),
+                          ml.stage_table.numel() * 4,
+                          ml.pano_hw[0] * ml.pano_hw[1], B)
+    return [(lambda b: m2.composite_mat2_planar(one[0], bands[b]),
+             lambda b: m2.composite_mat2_plain(one, bands[b])[0],
+             bnd, 1, bands),
+            (lambda b: m2.composite_mat2_planar_batched(planar, bands[b]),
+             lambda b: m2.composite_mat2_plain(planar, bands[b]),
+             bnd, SHARD_B, bands)]
+
+
+SHARD_SOURCE = {"lut": ("composite_mat2.cu", ("composite_mat2.py:388",
+                                              "composite_mat2.py:624")),
+                "mat": ("composite_mat2.cu", ("composite_mat.py:150",) * 2),
+                "feather": ("composite_feather.cu",
+                            ("composite_feather.py:354",) * 2),
+                "multiband": ("composite_mat2.cu",
+                              ("composite_mat2.py:986",))}
+
+
+def phase_shard(C):
+    """The sharded compose on one card: a mesh that lists the card once a
+    band, 2 and 4 bands, through `VideoStitcher(cfg, mesh=...)`. On the
+    stitcher phase's registration (865 x 6015 out) in 'lut' (K2 a band for
+    composite(), K1 a band for the micro-batch), 'feather' (K4) and
+    'multiband' (the pieces kernel's single entry a band); on the mat2 cell
+    (1280 x 7168, its poisoned LUT: K2/K1) and its clean LUT under
+    kernel='mat' (K5). Gates: composite() and the micro-batch of SHARD_B
+    frame sets equal to the single-device stitcher's bit for bit
+    (multiband: median 0, >= 99.9% within 2, the reference's gate of its
+    sharded path), the mode's kernels launched once a band a call, the
+    single-frame kernel on the band streams, each band's launch bit-exact
+    against its plain version. Times: a frame set's device path sharded
+    beside single-device (CUDA events), the micro-batch per frame set."""
+    torch, dev = C.torch, C.dev
+    from stitchingvideo_tpu_torch.blend.multiband_video import \
+        multiband_video_frame
+    from stitchingvideo_tpu_torch.parallel.compose_multiband import (
+        ShardedMultiband, multiband_sharded_frame)
+    from stitchingvideo_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    rows, metrics = [], {}
+    for cell, mode, video, install, frames, planar, kernels in \
+            shard_cells(C):
+        frames_d = torch.from_numpy(np.stack(frames)).to(dev)
+        one = C.VideoStitcher(video_cfg(C, **video))
+        install(one)
+        want = one.composite(frames)
+        want_mb = one.composite_microbatch(planar) if len(kernels) > 1 \
+            else None
+
+        def device_path(v):
+            if mode == "feather":
+                return lambda: v.composite_feather_planar(frames_d)
+            if mode != "multiband":
+                return lambda: v.composite_planar(frames_d)
+            st, crop = v._mbtlut
+            p = C.frames_to_planar_i8(frames_d)
+            if isinstance(st, ShardedMultiband):
+                return lambda: multiband_sharded_frame(p, st, crop)
+            return lambda: multiband_video_frame(p, st, crop)
+
+        single_ms = event_ms(torch, device_path(one), reps=5, warmup=1)
+        single_mb_ms = (event_ms(torch, lambda: one.composite_microbatch(
+            planar), reps=5, warmup=1) / SHARD_B if want_mb is not None
+            else None)
+        for n in SHARD_BANDS:
+            key = f"{cell}_{mode}_{n}"
+            mesh = make_mesh(canvas=n, devices=[dev] * n)
+            vs = C.VideoStitcher(video_cfg(C, **video), mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            install(vs)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            st = shard_state(vs, mode)
+            # the main path, counted; the single-frame kernel's streams
+            first, streams, launch = kernels[0], [], kernels[0].launch
+
+            def spy(*args):
+                streams.append(torch.cuda.current_stream().cuda_stream)
+                launch(*args)
+
+            C.reset_counts()
+            first.launch = spy
+            try:
+                got = vs.composite(frames)
+                got_mb = (vs.composite_microbatch(planar)
+                          if want_mb is not None else None)
+                torch.cuda.synchronize()
+            finally:
+                first.launch = launch
+            launches = C.read_counts()
+            if streams != [s.cuda_stream for s in mesh.band_streams()]:
+                fail(f"shard {key}: {first.name} not launched once a band "
+                     "on the band streams")
+            for k in kernels:
+                if launches[k.name] != n:
+                    fail(f"shard {key}: {k.name} launched "
+                         f"{launches[k.name]} times, not once a band")
+            m = {"bands": n, "build_s": build_s,
+                 "launches": launched(launches)}
+            if mode == "multiband":
+                d = np.abs(got.astype(np.int16) - want)
+                m.update(diff_median=float(np.median(d)),
+                         within_2=float((d <= 2).mean()), diff_max=int(d.max()))
+                if m["diff_median"] != 0 or m["within_2"] < 0.999:
+                    fail(f"shard {key}: multiband misses its tolerance {m}")
+            elif not np.array_equal(got, want) or \
+                    not torch.equal(got_mb, want_mb):
+                fail(f"shard {key}: sharded output != single-device output")
+            m["ms"] = event_ms(torch, device_path(vs), reps=5, warmup=1)
+            m["single_ms"] = single_ms
+            if want_mb is not None:
+                m["microbatch_ms_per_set"] = event_ms(
+                    torch, lambda: vs.composite_microbatch(planar), reps=5,
+                    warmup=1) / SHARD_B
+                m["single_microbatch_ms_per_set"] = single_mb_ms
+            source, tpu = SHARD_SOURCE[mode]
+            for k, (run, plain, bnd, B, bands), tpu_line in zip(
+                    kernels, shard_kernels(C, mode, st, planar), tpu):
+                err = max(max_err(run(b), plain(b))
+                          for b in range(len(bands)))
+                rows.append(kernel_row(
+                    k, source, tpu_line, launches[k.name], err,
+                    event_ms(torch, lambda: run(0), reps=5, warmup=1),
+                    event_ms(torch, lambda: plain(0), reps=1, warmup=0),
+                    *bnd(0, B), library_ms=None, batch=B,
+                    path=f"shard {cell} {mode}", bands=n,
+                    band_px=bands[0].pano_hw[0] * bands[0].pano_hw[1]))
+            metrics[key] = m
+            print(f"shard {key}: {n} bands built in {build_s:.3f} s; a frame "
+                  f"set {m['ms']:.4f} ms sharded vs {single_ms:.4f} ms on "
+                  "one device" + (
+                      f"; micro-batch {m['microbatch_ms_per_set']:.4f} vs "
+                      f"{single_mb_ms:.4f} ms a set" if want_mb is not None
+                      else f"; {m}") + f"; launches {m['launches']}",
+                  flush=True)
+            del vs, st, got, got_mb
+        del one, want, want_mb
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print("shard: every band's launch bit-exact against its plain version; "
+          "composite() and the micro-batch equal to one device's",
+          flush=True)
+    return rows, metrics
+
+
 # -- the staged kernels against other sources of theirs ----------------------
 
 # each staged entry point: its source's stem, its pointer and int arguments
@@ -2833,8 +3100,9 @@ def main() -> None:
               ("tiled", phase_tiled), ("feather", phase_feather),
               ("multiband", phase_multiband), ("window_probe", phase_probe),
               ("registration", phase_registration),
-              ("stitcher", phase_stitcher), ("stream", phase_stream),
-              ("ingest", phase_ingest), ("still", phase_still))
+              ("stitcher", phase_stitcher), ("shard", phase_shard),
+              ("stream", phase_stream), ("ingest", phase_ingest),
+              ("still", phase_still))
     if args.ab:
         phases = (("ab", lambda C: phase_ab(C, args.ab)),)
     for name, phase in phases:

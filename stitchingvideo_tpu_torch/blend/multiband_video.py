@@ -251,53 +251,79 @@ def multiband_blend_windows(x: torch.Tensor, st: MultibandVideoState,
             f"{st.buf_hw[1]}] bfloat16 windows, got {tuple(x.shape)} "
             f"{x.dtype}")
     mark = on_stage or (lambda name: None)
-    B = x.shape[0]
-    CHp, CWp = st.canvas_hw
-    bands = st.bands
-    f32 = torch.float32
-
-    # -- window image pyramids + per-level normalised contributions:
-    # bf16 / f32 -> f32 -> bf16
-    gp = ppyr.gaussian_pyramid_p(x, bands)
-    norms = [None] + [
-        (gp[lvl] / st.gm[lvl].clamp(min=WEIGHT_EPS)[None, :, None])
-        .to(torch.bfloat16) for lvl in range(1, bands + 1)]
-    del gp
+    norms = window_pyramids(x, st.gm, st.bands)
     mark("pyramids")
+    band = band_canvases(norms, st.gm, st.piece_ax, st.canvas_hw, st.bands)
+    C = collapse_bands(band, st.recip, st.bands)
+    del band
+    mark("canvas")
+    B0 = level0_canvas(x, norms[1], st.m0, st.piece_ax, st.canvas_hw)
+    del norms
+    out = to_panorama(B0, C, st.recip[0], crop_yx, st.out_hw)
+    mark("level0")
+    return out
 
-    # -- band canvases for levels >= 1: sum_p lap_p * gm_p placed at ax >> lvl
+
+def window_pyramids(x: torch.Tensor, gm, bands: int) -> list:
+    """The windows' Gaussian pyramids normalised by their mask pyramids `gm`
+    (bf16 / f32 -> f32 -> bf16): [None] + one [B, Nv, 3, Hb >> l, Wb >> l]
+    bfloat16 level a band."""
+    gp = ppyr.gaussian_pyramid_p(x, bands)
+    return [None] + [
+        (gp[lvl] / gm[lvl].clamp(min=WEIGHT_EPS)[None, :, None])
+        .to(torch.bfloat16) for lvl in range(1, bands + 1)]
+
+
+def band_canvases(norms, gm, piece_ax, canvas_hw, bands: int) -> list:
+    """The band canvases of levels >= 1: sum_p lap_p * gm_p placed at
+    ax >> lvl, in piece order; one [B, 3, CHp >> l, CWp >> l] float32 a
+    level."""
+    CHp, CWp = canvas_hw
+    f32 = torch.float32
+    B = norms[1].shape[0]
     band = []
     for lvl in range(1, bands + 1):
         lap = norms[lvl].to(f32)
         if lvl < bands:
             lap -= ppyr.pyr_up_p(norms[lvl + 1], f32)
-        contrib = lap.mul_(st.gm[lvl][None, :, None])
+        contrib = lap.mul_(gm[lvl][None, :, None])
         acc = torch.zeros((B, 3, CHp >> lvl, CWp >> lvl), dtype=f32,
-                          device=x.device)
-        band.append(_accumulate(acc, contrib, st.piece_ax, lvl))
-    # -- collapse coarse..1 on canvas grids
-    C = band[-1] * st.recip[bands]
+                          device=lap.device)
+        band.append(_accumulate(acc, contrib, piece_ax, lvl))
+    return band
+
+
+def collapse_bands(band, recip, bands: int) -> torch.Tensor:
+    """Collapse the band canvases coarse..1 on canvas grids."""
+    C = band[-1] * recip[bands]
     for lvl in range(bands - 1, 0, -1):
-        C = ppyr.pyr_up_p(C) + band[lvl - 1] * st.recip[lvl]
-    del band
-    mark("canvas")
+        C = ppyr.pyr_up_p(C) + band[lvl - 1] * recip[lvl]
+    return C
 
-    # -- level 0: band_0 = sum_p place(x_p - up(norm_1)_p * m_p): x is the
-    # seam composite restricted to its window and u the level-0 correction;
-    # one canvas accumulation
-    u_all = ppyr.pyr_up_p(norms[1], f32).mul_(st.m0[None, :, None].to(f32))
+
+def level0_canvas(x: torch.Tensor, norm1: torch.Tensor, m0, piece_ax,
+                  canvas_hw) -> torch.Tensor:
+    """Level 0: band_0 = sum_p place(x_p - up(norm_1)_p * m_p), x being the
+    seam composite restricted to its window and u the level-0 correction;
+    one canvas accumulation, [B, 3, CHp, CWp] float32."""
+    f32 = torch.float32
+    u_all = ppyr.pyr_up_p(norm1, f32).mul_(m0[None, :, None].to(f32))
     d_all = x.to(f32).sub_(u_all)
-    del u_all, norms
-    B0 = _accumulate(torch.zeros((B, 3, CHp, CWp), dtype=f32,
-                                 device=x.device), d_all, st.piece_ax, 0)
-    pano = B0 * st.recip[0] + ppyr.pyr_up_p(C)
+    del u_all
+    return _accumulate(torch.zeros((x.shape[0], 3) + tuple(canvas_hw),
+                                   dtype=f32, device=x.device),
+                       d_all, piece_ax, 0)
 
+
+def to_panorama(B0: torch.Tensor, C: torch.Tensor, recip0: torch.Tensor,
+                crop_yx, out_hw) -> torch.Tensor:
+    """Level 0 plus the collapsed bands, cropped, rounded half to even and
+    clamped: [B, 3, outH, outW] uint8."""
+    pano = B0 * recip0 + ppyr.pyr_up_p(C)
     oy, ox = crop_yx
-    oh, ow = st.out_hw
-    out = torch.round(pano[:, :, oy:oy + oh, ox:ox + ow]).clamp_(0, 255) \
+    oh, ow = out_hw
+    return torch.round(pano[:, :, oy:oy + oh, ox:ox + ow]).clamp_(0, 255) \
         .to(torch.uint8)
-    mark("level0")
-    return out
 
 
 def multiband_video_frames_batched(planar_b_i8: torch.Tensor,

@@ -11,7 +11,9 @@ RunTest2.bat's `OpenCV2.4.11-Stitching img1..img6` -> `stitch img1..img6`,
 plus a `video` subcommand for the RT-driver mode the reference compiles
 constants for. Both run on the card unless `--device cpu` is given; with
 no card and no `--device cpu` they raise, as the API does.
-`--canvas_shards > 1` raises `NotImplementedError` (ROADMAP.md item 22).
+`video --canvas_shards N` composes over N canvas bands (`parallel/`): on
+the card it needs N visible cards, with `--device cpu` the bands share the
+CPU.
 """
 from __future__ import annotations
 
@@ -189,9 +191,17 @@ def cmd_video(args) -> int:
         cfg.video, reregister_seconds=args.reregister_seconds,
         compose_mode=args.compose_mode,
         pipeline_depth=args.pipeline_depth))
+    mesh = None
     if getattr(args, "canvas_shards", 1) > 1:
+        from .parallel.mesh import make_mesh
         cfg = cfg.replace(parallel=dataclasses.replace(
             cfg.parallel, canvas_shards=args.canvas_shards))
+        # before any producer starts: on CUDA this needs canvas_shards
+        # visible cards (the reference needs as many chips); on the CPU the
+        # bands share the CPU device
+        n = args.canvas_shards
+        mesh = make_mesh(canvas=n, devices=None if device.type == "cuda"
+                         else [device] * n)
     producers = []
     src = None
     try:
@@ -235,12 +245,11 @@ def cmd_video(args) -> int:
             _unlink_rings(names)
         raise
     # everything below runs under the same cleanup as the stream loop: a
-    # failure here (bad --load_registration path, unwritable --output, too
-    # few devices for --canvas_shards) must not orphan the looping decode
-    # producers or leak their /dev/shm rings
+    # failure here (bad --load_registration path, unwritable --output) must
+    # not orphan the looping decode producers or leak their /dev/shm rings
     sink = None
     try:
-        vs = VideoStitcher(cfg, device)
+        vs = VideoStitcher(cfg, device, mesh=mesh)
         if args.load_registration:
             # stream through the checkpointed registration immediately — the
             # cold slow path is skipped (reference camera-mp4.yml intent,
@@ -328,9 +337,9 @@ def main(argv=None) -> int:
                     help="start from a saved registration (skips the cold "
                          "slow path entirely)")
     pv.add_argument("--canvas_shards", type=int, default=1,
-                    help="shard the panorama in row bands over this many "
-                         "devices; not ported yet: > 1 raises "
-                         "NotImplementedError (ROADMAP.md item 22)")
+                    help="compose the panorama in this many canvas bands, "
+                         "one a device: on CUDA it needs as many visible "
+                         "cards; with --device cpu the bands share the CPU")
     _add_common(pv)
     pv.set_defaults(func=cmd_video)
 

@@ -120,7 +120,7 @@ class UndistortConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Device-mesh layout (SURVEY §2.3, §5.8)."""
-    canvas_shards: int = 1            # panorama column shards (ICI axis)
+    canvas_shards: int = 1            # canvas bands of the compose (parallel/)
     camera_shards: int = 1            # camera axis for registration fan-out
     axis_names: Tuple[str, str] = ("camera", "canvas")
 

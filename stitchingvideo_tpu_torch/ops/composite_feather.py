@@ -26,7 +26,7 @@ adds nothing: the reference multiplies a finite value by 0 there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +48,11 @@ FEATHER_BATCHED = _cuda.CudaKernel("composite_feather_planar_batched",
                                    _cuda.COMPOSITE_FEATHER)
 
 _FIELDS = ("cam_a", "sx_a", "sy_a", "gw_a", "cam_b", "sx_b", "sy_b", "gw_b")
+
+
+# the values of a pixel where a BlendLUT has neither slot (pad rows)
+BLEND_FILLS = dict(cam_a=-1, sx_a=0.0, sy_a=0.0, gw_a=0.0,
+                   cam_b=-1, sx_b=0.0, sy_b=0.0, gw_b=0.0)
 
 
 @dataclasses.dataclass
@@ -159,8 +164,9 @@ class FeatherMatLUT:
     tile_cam [T*2], tile_org [T*4], tile_band [T*2] int32, fallback [T] bool:
         the reference's per-tile window metadata (`_materialize_feather`)
     stage_table: [blocks, 2, 4] int32  the kernel's staging table
-        (`ops/staging.py`), over the live slots of both slots; the plain
-        version does not read it
+        (`ops/staging.py`), over the live slots of both slots; None on a
+        state built without it (the kernel refuses one); the plain version
+        does not read it
     stage_bytes: shared memory of one stage;  n_direct: direct-gather blocks
     """
     tap_xy: torch.Tensor
@@ -180,9 +186,9 @@ class FeatherMatLUT:
     grid_hw: Tuple[int, int]
     pano_hw: Tuple[int, int]
     frame_hw: Tuple[int, int]
-    stage_table: torch.Tensor
-    stage_bytes: int
-    n_direct: int
+    stage_table: Optional[torch.Tensor] = None
+    stage_bytes: int = 0
+    n_direct: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -237,6 +243,25 @@ def _tile_fields(blut: BlendLUT, frame_hw):
 def build_feather_mat(blut: BlendLUT, frame_hw: Tuple[int, int]
                       ) -> FeatherMatLUT:
     """The kernel's state from a BlendLUT, on the LUT's device."""
+    return with_feather_staging(_per_pixel_feather(blut, frame_hw))
+
+
+def with_feather_staging(ml: FeatherMatLUT) -> FeatherMatLUT:
+    """A per-pixel feather state with the staging table of both slots' live
+    taps (`ops/staging.py`) over its panorama."""
+    taps = []
+    for s in range(2):
+        live = torch.nonzero(ml.tap_cw[s] >= 0).reshape(-1)
+        xy = ml.tap_xy[s][live]
+        taps.append((live, ml.tap_cw[s][live] >> 16, xy & 0xFFFF, xy >> 16))
+    table, stage_bytes, n_direct = staging_table(taps, ml.pano_hw,
+                                                 ml.frame_hw)
+    return dataclasses.replace(ml, stage_table=table, stage_bytes=stage_bytes,
+                               n_direct=n_direct)
+
+
+def _per_pixel_feather(blut: BlendLUT, frame_hw) -> FeatherMatLUT:
+    """The per-pixel state, without the staging table."""
     fh, fw = (int(x) for x in frame_hw)
     if fh < WIN_H or fw < WIN_W:
         raise ValueError(f"frames {(fh, fw)} smaller than window "
@@ -280,12 +305,6 @@ def build_feather_mat(blut: BlendLUT, frame_hw: Tuple[int, int]
     i32 = torch.int32
     n_cams = int(max(blut.cam_a.max(), blut.cam_b.max())) + 1 \
         if fb.numel() else 0
-    taps = []
-    for s in range(2):
-        live = torch.nonzero(cw[s] >= 0).reshape(-1)
-        taps.append((live, cw[s][live] >> 16, xy[s][live] & 0xFFFF,
-                     xy[s][live] >> 16))
-    table, stage_bytes, n_direct = staging_table(taps, pano_hw, (fh, fw))
     return FeatherMatLUT(
         tap_xy=torch.stack(xy).contiguous(),
         tap_cw=torch.stack(cw).contiguous(),
@@ -298,8 +317,7 @@ def build_feather_mat(blut: BlendLUT, frame_hw: Tuple[int, int]
         tile_org=torch.stack(orgs, dim=1).to(i32).reshape(-1),
         tile_band=torch.stack(bands, dim=1).to(i32).reshape(-1),
         fallback=fallback, n_fallback=int(fallback.sum()), n_cams=n_cams,
-        grid_hw=grid, pano_hw=pano_hw, frame_hw=(fh, fw), stage_table=table,
-        stage_bytes=stage_bytes, n_direct=n_direct)
+        grid_hw=grid, pano_hw=pano_hw, frame_hw=(fh, fw))
 
 
 def _fb_blend_values(planar_b: torch.Tensor, ml: FeatherMatLUT) -> torch.Tensor:

@@ -101,6 +101,12 @@ def window_taps(local, org, size: int):
 
 
 def _materialize(tlut: TiledLUT) -> MatLUT:
+    """The kernel's state: the per-pixel state and its staging table."""
+    return with_staging_table(_per_pixel(tlut))
+
+
+def _per_pixel(tlut: TiledLUT) -> MatLUT:
+    """The per-pixel state, without the staging table."""
     check_packable(tlut.frame_hw)
     T = tlut.sx.shape[0]
     cam = tlut.cidx
@@ -122,11 +128,11 @@ def _materialize(tlut: TiledLUT) -> MatLUT:
     def flat(a):
         return untile(a, tlut.grid_hw, tlut.pano_hw).reshape(-1).contiguous()
 
-    return with_staging_table(MatLUT(
+    return MatLUT(
         tap_xy=flat(tap_xy), tap_cw=flat(tap_cw),
         gc=flat(tlut.gain * covered.to(torch.float32)),
         n_fallback=tlut.n_fallback, n_cams=tlut.n_cams,
-        pano_hw=tlut.pano_hw, frame_hw=tlut.frame_hw))
+        pano_hw=tlut.pano_hw, frame_hw=tlut.frame_hw)
 
 
 def build_mat_lut(lut, frame_hw: Tuple[int, int]) -> MatLUT:

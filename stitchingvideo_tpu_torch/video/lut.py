@@ -14,6 +14,10 @@ import dataclasses
 import torch
 
 from ..models.registration import Registration
+from ..ops.composite import TILE_H, TILE_W
+
+# a canvas band holds a whole number of the reference kernel's tile groups
+TILE_GROUP = 8
 
 
 @dataclasses.dataclass
@@ -90,6 +94,40 @@ def build_lut(reg: Registration, crop=None) -> CompositeLUT:
                         src_x=src_x[sl].contiguous(),
                         src_y=src_y[sl].contiguous(),
                         gain=gain[sl].contiguous())
+
+
+def shard_rows(H: int, W: int, n_shards: int) -> int:
+    """Rows of a panorama of H x W padded so its tile grid splits into
+    n_shards equal row bands of whole tile groups: nty % n_shards == 0 and
+    (nty / n_shards) * ntx % TILE_GROUP == 0 (the reference's bands)."""
+    ntx = -(-W // TILE_W)
+    k = -(-(-(-H // TILE_H)) // n_shards)     # ceil(nty0 / n_shards)
+    while (k * ntx) % TILE_GROUP != 0:
+        k += 1
+    return k * n_shards * TILE_H
+
+
+def pad_rows(a: torch.Tensor, Hp: int, fill) -> torch.Tensor:
+    """A 2-D tensor with rows of `fill` appended up to Hp rows."""
+    out = torch.full((Hp,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                     device=a.device)
+    out[:a.shape[0]] = a
+    return out
+
+
+def pad_lut_rows_for_shards(lut: CompositeLUT,
+                            n_shards: int) -> CompositeLUT:
+    """Pad the panorama with uncovered rows (cam_idx -1, gain 1) so that the
+    tile grid splits into n_shards equal row bands of whole tile groups
+    (`shard_rows`); the sharded compose crops them off."""
+    H, W = lut.shape
+    Hp = shard_rows(H, W, n_shards)
+    if Hp == H:
+        return lut
+    return CompositeLUT(cam_idx=pad_rows(lut.cam_idx, Hp, -1),
+                        src_x=pad_rows(lut.src_x, Hp, 0.0),
+                        src_y=pad_rows(lut.src_y, Hp, 0.0),
+                        gain=pad_rows(lut.gain, Hp, 1.0))
 
 
 def composite_frame(frames: torch.Tensor, lut: CompositeLUT) -> torch.Tensor:

@@ -23,8 +23,14 @@ launches) and a host finish; `video/stream.py`'s `StreamingComposer`, which
 `run(pipeline_depth > 1)` uses, keeps frames in flight through the same
 dispatch.
 
-Still to port: canvas sharding (`canvas_shards > 1` raises
-`NotImplementedError` naming ROADMAP.md item 22).
+With a device mesh (`cfg.parallel.canvas_shards > 1`, or `mesh=`) every mode
+composes over canvas bands (`parallel/`): the seam-select and feather states
+are cut into row bands of the panorama, padded to the reference's band rows
+and cropped after the join, and the multiband state into piece groups whose
+partial canvases are summed on the first device. Each band launches on its
+device's stream (`parallel/mesh.py`). As in the reference, 'auto' and
+'mat2' shard the mat2 kernel, 'mat' and 'tiled' the mat kernel, and
+'gather' stays on one device.
 """
 from __future__ import annotations
 
@@ -46,27 +52,36 @@ from ..geometry.undistort import compose_maps, undistort_map_from_config
 from ..models.registration import Registration
 from ..models.stitcher import Stitcher, _blend_on_canvas, _remap_gain_batch
 from ..ops.composite import build_tiled_lut, composite_tiled
-from ..ops.composite_feather import (BlendLUT, build_blend_lut,
+from ..ops.composite_feather import (BLEND_FILLS, BlendLUT,
+                                     _per_pixel_feather, build_blend_lut,
                                      build_feather_mat,
                                      composite_feather_planar,
                                      composite_feather_planar_batched)
-from ..ops.composite_mat import (_materialize, composite_mat,
+from ..ops.composite_mat import (_materialize, _per_pixel,
+                                 composite_mat_planar,
                                  composite_mat_planar_batched,
                                  frames_to_planar_i8, planar_to_hwc)
-from ..ops.composite_mat2 import (_materialize2, composite_mat2_planar,
+from ..ops.composite_mat2 import (_materialize2, _per_pixel2,
+                                  composite_mat2_planar,
                                   composite_mat2_planar_batched)
 from ..ops.remap import remap
+from ..parallel.compose_feather import (pad_blend_rows_for_shards,
+                                        shard_feather_lut)
+from ..parallel.compose_mat import shard_mat_lut
+from ..parallel.compose_mat2 import shard_mat2_lut
+from ..parallel.compose_multiband import (ShardedMultiband,
+                                          multiband_sharded_frame,
+                                          shard_multiband_state)
+from ..parallel.mesh import Mesh, canonical_device, make_mesh, run_banded
 from ..utils.timing import (GLOBAL_TRACER as _tracer, Timer,
                             maybe_sync as _msync, set_sync_spans)
-from .lut import CompositeLUT, build_lut, composite_frame_u8
+from .lut import (CompositeLUT, build_lut, composite_frame_u8,
+                  pad_lut_rows_for_shards)
 from .sources import FrameSource
 from .stream import StreamingComposer
 
 log = logging.getLogger(__name__)
 
-_ROADMAP = "ROADMAP.md, queue 1"
-_BLEND_FILLS = dict(cam_a=-1, sx_a=0.0, sy_a=0.0, gw_a=0.0,
-                    cam_b=-1, sx_b=0.0, sy_b=0.0, gw_b=0.0)
 
 
 def _fit2d(a: torch.Tensor, fill, shape) -> torch.Tensor:
@@ -121,30 +136,49 @@ class FrameStats:
 
 
 class VideoStitcher:
-    """Seam-select, feather and multiband hot loops on one device.
+    """Seam-select, feather and multiband hot loops on one device, or over
+    the canvas bands of a device mesh.
 
-    device: 'cuda' unless given; with no CUDA present the default raises
-    (there is no silent CPU fallback). `device="cpu"` runs the kernels'
-    plain PyTorch versions."""
+    device: 'cuda' unless given (or the mesh's first device); with no CUDA
+    present the default raises (there is no silent CPU fallback).
+    `device="cpu"` runs the kernels' plain PyTorch versions.
+    mesh: the `parallel.mesh.Mesh` to compose over; by default, with
+    `cfg.parallel.canvas_shards > 1`, `make_mesh(canvas_shards,
+    camera_shards)` over the visible CUDA cards, or on the CPU the CPU
+    device once a band. Its first canvas device is the stitcher's device.
+    """
 
-    def __init__(self, config: Optional[StitchConfig] = None, device=None):
+    def __init__(self, config: Optional[StitchConfig] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         cfg = config or StitchConfig()
         v = cfg.video
         if v.compose_mode not in ("lut", "feather", "multiband"):
             raise ValueError(f"unknown compose_mode {v.compose_mode!r}")
         if v.kernel not in ("auto", "mat2", "mat", "tiled", "gather"):
             raise ValueError(f"unknown kernel {v.kernel!r}")
-        if cfg.parallel.canvas_shards > 1:
-            raise NotImplementedError(
-                "canvas_shards > 1 is not ported yet "
-                f"({_ROADMAP}, item 22)")
         if cfg.scales.compose_megapix > 0:
             # the hot loop takes raw full-resolution frames through the LUT
             # (the reference RT program works at native 1080p): the maps are
             # built in full-resolution source coordinates
             cfg = cfg.replace(scales=dataclasses.replace(
                 cfg.scales, compose_megapix=-1.0))
+        if mesh is not None and device is None:
+            device = mesh.canvas_devices[0]
         self.device = resolve_device(device, "VideoStitcher")
+        par = cfg.parallel
+        if mesh is None and par.canvas_shards > 1:
+            n = par.canvas_shards * par.camera_shards
+            mesh = make_mesh(canvas=par.canvas_shards,
+                             camera=par.camera_shards,
+                             devices=None if self.device.type == "cuda"
+                             else [self.device] * n)
+        if mesh is not None and \
+                mesh.canvas_devices[0] != canonical_device(self.device):
+            raise ValueError(f"the mesh's first device "
+                             f"{mesh.canvas_devices[0]} is not the "
+                             f"stitcher's device {self.device}")
+        # the canvas bands of the sharded compose, or None for one device
+        self._mesh = mesh
         self.cfg = cfg
         self.stitcher = Stitcher(cfg, self.device)
         self._lock = threading.Lock()
@@ -153,13 +187,16 @@ class VideoStitcher:
         self._install_lock = threading.Lock()
         self._lut: Optional[CompositeLUT] = None
         # seam-select kernel state: (kind, state) with kind 'mat2' | 'mat' |
-        # 'tiled', or None for the plain gather
+        # 'tiled', or None for the plain gather; with a mesh the mat2 or mat
+        # state is a `parallel.mesh.Banded` of them
         self._tlut = None
-        self._ftlut = None                 # ("fmat", FeatherMatLUT) or None
+        # ("fmat", FeatherMatLUT, or with a mesh a Banded of them) or None
+        self._ftlut = None
         self._ftlut_reg = None             # the Registration it was built from
-        self._mbtlut = None                # (MultibandVideoState, crop_yx)
+        # (MultibandVideoState, or with a mesh ShardedMultiband, crop_yx)
+        self._mbtlut = None
         self._mbtlut_reg = None            # the Registration it was built from
-        # CUDA event after the live state's build (`_mark_built`)
+        # CUDA events after the live state's build (`_mark_built`)
         self._ready = None
         self._reg: Optional[Registration] = None
         self._out_shape: Optional[tuple] = None
@@ -259,21 +296,29 @@ class VideoStitcher:
                 self.registrations += 1
 
     def _mark_built(self):
-        """Under the lock, before a swap: a CUDA event on the current stream
-        after the new state's build. Every dispatch's stream waits on the
-        event of the state it read (`_snapshot`), so a state built on
-        another thread's stream is never read before its build has finished
-        on the device. The stream first waits on the previous event, so the
-        new one also covers states built on other streams. None on the
-        CPU."""
+        """Under the lock, before a swap: CUDA events, one on the current
+        stream of each device the state lives on (the stitcher's and the
+        mesh's), after the new state's build. Every dispatch's stream waits
+        on the events of the state it read (`_snapshot`), so a state built
+        on another thread's stream is never read before its build has
+        finished on the device; the band streams wait on the dispatch's
+        stream (`parallel/mesh.py` `run_bands`). Each stream first waits on
+        the previous events, so the new ones also cover states built on
+        other streams. None on the CPU."""
         if self.device.type != "cuda":
             return None
-        stream = torch.cuda.current_stream(self.device)
-        if self._ready is not None:
-            stream.wait_event(self._ready)
-        ready = torch.cuda.Event()
-        ready.record(stream)
-        return ready
+        devices = {canonical_device(self.device)}
+        if self._mesh is not None:
+            devices.update(self._mesh.canvas_devices)
+        events = []
+        for d in sorted(devices, key=str):
+            stream = torch.cuda.current_stream(d)
+            for prev in self._ready or ():
+                stream.wait_event(prev)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+            events.append(ready)
+        return tuple(events)
 
     def _snapshot(self) -> _Snapshot:
         """The live state, read under the lock; the current stream then
@@ -282,22 +327,39 @@ class VideoStitcher:
             snap = _Snapshot(self._reg, self._lut, self._tlut, self._ftlut,
                              self._ftlut_reg, self._mbtlut, self._mbtlut_reg)
             ready = self._ready
-        if ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(ready)
+        for ev in ready or ():
+            torch.cuda.current_stream(self.device).wait_event(ev)
         return snap
 
     def _build_tiled(self, lut: CompositeLUT, frame_hw):
         """The seam-select kernel state of cfg.video.kernel: 'auto' and
         'mat2' build mat2, 'mat' and 'tiled' their own, None for 'gather'.
-        Neither of the last two kernels has a fallback path: a LUT with
-        fallback tiles raises `ValueError` (the reference quietly composes
-        through its gather instead)."""
+        With a mesh, 'auto' and 'mat2' build mat2 and 'mat' and 'tiled' mat,
+        each cut into canvas bands (`parallel.mesh.Banded`, cropped back to
+        the LUT's rows by `run_banded`). Neither 'mat' nor 'tiled' has a
+        fallback path: a LUT with fallback tiles raises `ValueError` (the
+        reference quietly composes through its gather instead)."""
         kernel = self.cfg.video.kernel
         if kernel == "gather":
             return None
+        if self._mesh is not None:
+            tlut = build_tiled_lut(pad_lut_rows_for_shards(
+                lut, self._mesh.shape["canvas"]), frame_hw)
+            Hp = lut.shape[0]
+            if kernel in ("auto", "mat2"):
+                return ("mat2", shard_mat2_lut(_per_pixel2(tlut), self._mesh,
+                                               Hp))
+            self._refuse_fallback(tlut)
+            return ("mat", shard_mat_lut(_per_pixel(tlut), self._mesh, Hp))
         tlut = build_tiled_lut(lut, frame_hw)
         if kernel in ("auto", "mat2"):
             return ("mat2", _materialize2(tlut))
+        self._refuse_fallback(tlut)
+        return ("mat", _materialize(tlut)) if kernel == "mat" \
+            else ("tiled", tlut)
+
+    def _refuse_fallback(self, tlut) -> None:
+        kernel = self.cfg.video.kernel
         if tlut.n_fallback != 0:
             raise ValueError(
                 f"kernel={kernel!r} has no fallback path and the LUT has "
@@ -305,21 +367,31 @@ class VideoStitcher:
                 "than two cameras or overflow their source window): use "
                 "kernel='mat2', which composes them in its kernel, or "
                 "kernel='gather'")
-        return ("mat", _materialize(tlut)) if kernel == "mat" \
-            else ("tiled", tlut)
 
     def _build_feather(self, reg: Registration, frame_hw, out_shape):
-        """The feather kernel state from a registration."""
-        return ("fmat", build_feather_mat(self._blend_lut(reg, out_shape),
-                                          frame_hw))
+        """The feather kernel state from a registration: ('fmat', state),
+        the state cut into canvas bands with a mesh."""
+        blut = self._blend_lut(reg, out_shape)
+        if self._mesh is None:
+            return ("fmat", build_feather_mat(blut, frame_hw))
+        fml = _per_pixel_feather(pad_blend_rows_for_shards(
+            blut, self._mesh.shape["canvas"]), frame_hw)
+        return ("fmat", shard_feather_lut(fml, self._mesh, blut.shape[0]))
 
     def _build_multiband(self, reg: Registration, frame_hw):
-        """The multiband state from a registration: (state, crop_yx)."""
+        """The multiband state from a registration: (state, crop_yx), the
+        state cut into piece groups over the mesh if there is one (only the
+        groups are kept)."""
         CW, CH = reg.canvas_wh
+        ndev = self._mesh.shape["canvas"] if self._mesh is not None else 0
         st, crop_yx = build_multiband_state(
             reg, frame_hw, self.cfg.compose.blend_strength,
-            crop=self._crop_slices((CH, CW), reg.extent_wh))
-        return st.to(self.device), crop_yx
+            crop=self._crop_slices((CH, CW), reg.extent_wh),
+            pad_pieces_to=ndev)
+        st = st.to(self.device)
+        if self._mesh is not None:
+            st = shard_multiband_state(st, self._mesh)
+        return st, crop_yx
 
     def build_feather_state(self, frame_hw) -> bool:
         """Build and swap in the feather kernel state of the live
@@ -410,7 +482,7 @@ class VideoStitcher:
     @staticmethod
     def _fit_blend(blut: BlendLUT, shape) -> BlendLUT:
         """Pad/crop a blend LUT to the frozen output shape."""
-        return blut.map(lambda k, a: _fit2d(a, _BLEND_FILLS[k], shape))
+        return blut.map(lambda k, a: _fit2d(a, BLEND_FILLS[k], shape))
 
     @staticmethod
     def _fit_lut(lut: CompositeLUT, shape) -> CompositeLUT:
@@ -490,8 +562,10 @@ class VideoStitcher:
             st, crop_yx = snap.mbt
             batch = upload(self._select_frames(frames,
                                                snap.mb_reg or snap.reg))
-            out = multiband_video_frame(frames_to_planar_i8(batch), st,
-                                        crop_yx=crop_yx)
+            planar = frames_to_planar_i8(batch)
+            out = (multiband_sharded_frame(planar, st, crop_yx)
+                   if isinstance(st, ShardedMultiband) else
+                   multiband_video_frame(planar, st, crop_yx=crop_yx))
         elif mode == "lut":
             batch = upload(self._select_frames(frames, snap.reg))
             return planar_to_hwc(self._planar_with(batch, snap.lut,
@@ -544,9 +618,11 @@ class VideoStitcher:
             raise RuntimeError("not registered yet")
         kind, state = tlut or ("gather", lut)
         if kind == "mat2":
-            return composite_mat2_planar(frames_to_planar_i8(batch), state)
+            return run_banded(composite_mat2_planar,
+                              frames_to_planar_i8(batch), state)
         if kind == "mat":
-            return composite_mat(batch, state)
+            return run_banded(composite_mat_planar,
+                              frames_to_planar_i8(batch), state)
         if kind == "tiled":
             return composite_tiled(batch, state).permute(2, 0, 1)
         return composite_frame_u8(batch, lut).permute(2, 0, 1)
@@ -565,7 +641,8 @@ class VideoStitcher:
     @staticmethod
     def _feather_planar(batch: torch.Tensor, ftlut) -> torch.Tensor:
         """Feather hot path on a caller-snapshotted state."""
-        return composite_feather_planar(frames_to_planar_i8(batch), ftlut[1])
+        return run_banded(composite_feather_planar,
+                          frames_to_planar_i8(batch), ftlut[1])
 
     def composite_microbatch(self, planar_batch: torch.Tensor) -> torch.Tensor:
         """Throughput serving path: B frame sets in one launch.
@@ -573,7 +650,9 @@ class VideoStitcher:
         planar_batch: [B, N, 3, H, W] int8 (value-128, the ingest-native
         planar layout) on the device. Returns [B, 3, Hp, Wp] uint8, per
         frame set what the single-frame path gives. Served by the feather,
-        mat2 and mat kernels."""
+        mat2 and mat kernels, on one device or, batched, once a band (the
+        reference maps its sharded single-frame function over the batch;
+        batched and single are bit-exact)."""
         snap = self._snapshot()
         tlut, ftlut = snap.tlut, snap.ftlut
         if self.cfg.video.compose_mode == "multiband":
@@ -586,11 +665,14 @@ class VideoStitcher:
             if ftlut is None:
                 raise RuntimeError("feather micro-batch path requires the "
                                    "feather state (install a registration)")
-            return composite_feather_planar_batched(planar_batch, ftlut[1])
+            return run_banded(composite_feather_planar_batched, planar_batch,
+                              ftlut[1])
         if tlut is not None and tlut[0] == "mat2":
-            return composite_mat2_planar_batched(planar_batch, tlut[1])
+            return run_banded(composite_mat2_planar_batched, planar_batch,
+                              tlut[1])
         if tlut is not None and tlut[0] == "mat":
-            return composite_mat_planar_batched(planar_batch, tlut[1])
+            return run_banded(composite_mat_planar_batched, planar_batch,
+                              tlut[1])
         raise RuntimeError("micro-batch path requires a materialized LUT "
                            "(install a registration with kernel 'auto', "
                            "'mat2' or 'mat')")

@@ -359,17 +359,48 @@ def test_cli_stitch(scene_files, tmp_path):
     assert dot.startswith("graph matches_graph{") and "Nm=" in dot
 
 
-def test_cli_canvas_shards_raises_and_cleans_up(lossless_clips,
+def test_cli_canvas_shards_raises_and_cleans_up(lossless_clips, tmp_path,
                                                 monkeypatch):
-    """--canvas_shards 2 raises naming item 22, after the producers came
-    up: none of them and none of their rings is left."""
+    """A start with --canvas_shards 2 that fails after the producers came
+    up (a --load_registration file that is not there) raises, and none of
+    the producers and none of their rings is left."""
     spawned = _spy_producers(monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(FileNotFoundError):
         cli.main(["video", *lossless_clips, "--mode", "shm", "--frames",
-                  "2", *SCENE, *CPU, "--output", "", "--canvas_shards", "2"])
+                  "2", *SCENE, *CPU, "--output", "", "--canvas_shards", "2",
+                  "--load_registration", str(tmp_path / "missing.npz")])
     assert len(spawned) == 3
     assert all(p.poll() is not None for _, p in spawned)
     assert not _ring_files()
+
+
+def test_cli_canvas_shards_equal_single(scene_files, tmp_path, monkeypatch):
+    """`video --canvas_shards 2 --device cpu` writes, frame for frame, what
+    `--canvas_shards 1` writes; on CUDA with too few cards it raises before
+    it spawns a producer."""
+    _views, paths = scene_files
+    outs = []
+    for n in (1, 2):
+        out = tmp_path / f"shards{n}"
+        rc = cli.main(["video", *paths, "--mode", "replay", "--frames", "2",
+                       *SCENE, *CPU, "--output", str(out),
+                       "--canvas_shards", str(n)])
+        assert rc == 0
+        outs.append(sorted(out.iterdir()))
+    assert [p.name for p in outs[1]] == ["frame_000000.jpg",
+                                         "frame_000001.jpg"]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(iio.imread(a), iio.imread(b))
+
+    def no_spawn(*a, **kw):
+        raise AssertionError("a producer was spawned")
+
+    monkeypatch.setattr(sources, "spawn_video_producer", no_spawn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        cli.main(["video", "a.avi", "b.avi", "--mode", "shm", "--output", "",
+                  "--canvas_shards", "2"])
 
 
 @pytest.mark.parametrize("argv", [

@@ -1221,3 +1221,95 @@ def test_cli_shm_attach_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert [i for i, _ in got] == list(range(6))
     for _, p in got:
         np.testing.assert_array_equal(p, want)
+
+
+# -- canvas bands on one card -----------------------------------------------
+
+# the kernel a sharded frame set launches once a band
+SHARD_KERNEL = {"lut": m2.MAT2_SINGLE, "feather": fe.FEATHER_SINGLE,
+                "multiband": m2.PIECES_SINGLE}
+
+
+def _two_bands(dev):
+    from stitchingvideo_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(canvas=2, devices=[dev, dev])
+
+
+def test_sharded_mat2_kernel_on_the_card(dev):
+    """The poisoned fixture (fallback tiles) cut into two row bands on the
+    card: each band's launch equals its plain version, and the joined bands
+    equal the single-device kernel, single and batched."""
+    from stitchingvideo_tpu_torch.parallel import compose_mat2 as pm2
+    from stitchingvideo_tpu_torch.parallel.mesh import run_banded
+    from stitchingvideo_tpu_torch.video.lut import pad_lut_rows_for_shards
+    frames, lut = _state("poisoned")
+    lut = pad_lut_rows_for_shards(lut.to(dev), 2)
+    ml = m2._per_pixel2(tiled.build_tiled_lut(lut, FRAME_HW))
+    assert ml.n_fallback > 0
+    sm = pm2.shard_mat2_lut(ml, _two_bands(dev), ml.pano_hw[0])
+    assert all(b.device.type == "cuda" for b in sm.bands)
+    planar = frames_to_planar_i8(frames.to(dev))
+    before = m2.MAT2_SINGLE.launches
+    got = run_banded(m2.composite_mat2_planar, planar, sm)
+    torch.cuda.synchronize()
+    assert m2.MAT2_SINGLE.launches == before + 2
+    assert torch.equal(got, m2.composite_mat2_planar(
+        planar, m2.with_staging_table(ml)))
+    for band, (r0, r1) in zip(sm.bands, sm.rows):
+        assert torch.equal(got[:, r0:r1],
+                           m2.composite_mat2_plain(planar[None], band)[0])
+    batch = torch.stack([planar, planar.flip(0)])
+    got_b = run_banded(m2.composite_mat2_planar_batched, batch, sm)
+    assert torch.equal(got_b[0], got)
+    assert torch.equal(got_b[1], run_banded(m2.composite_mat2_planar,
+                                            batch[1], sm))
+
+
+@pytest.mark.parametrize("mode", ("lut", "feather", "multiband"))
+def test_sharded_modes_on_the_card(dev, mode, monkeypatch):
+    """A stitcher on `cuda:0` listed twice: each frame set launches the
+    mode's kernel once a band, on the band's stream; the panorama equals
+    the single-device stitcher's (bit for bit; multiband within the
+    reference's gate of its sharded path: median 0, >= 99.9% within 2), and
+    so do the composer's deliveries at depth 3 and, in 'lut' and
+    'feather', the micro-batch."""
+    reg = _stream_registration()
+    one = _stream_stitcher(mode, reg)
+    mesh = _two_bands(dev)
+    cfg = StitchConfig()
+    vs = VideoStitcher(cfg.replace(
+        video=dataclasses.replace(cfg.video, compose_mode=mode)), mesh=mesh)
+    vs.install_lut(build_lut(reg), FRAME_HW, reg=reg)
+    sets = _stream_sets(3, seed=11)
+    kernel, streams = SHARD_KERNEL[mode], []
+    launch = kernel.launch
+
+    def spy(*args):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        launch(*args)
+
+    monkeypatch.setattr(kernel, "launch", spy)
+    got = [vs.composite(f) for f in sets]
+    monkeypatch.undo()
+    assert streams == [s.cuda_stream for s in mesh.band_streams()] * 3
+    for g, f in zip(got, sets):
+        w = one.composite(f)
+        assert g.shape == w.shape
+        if mode == "multiband":
+            d = np.abs(g.astype(np.int16) - w)
+            assert np.median(d) == 0 and (d <= 2).mean() >= 0.999
+        else:
+            np.testing.assert_array_equal(g, w)
+    sc = StreamingComposer(vs, depth=3)
+    streamed = [o for f in sets if (o := sc.submit(f)) is not None]
+    streamed += sc.flush()
+    for s, g in zip(streamed, got):
+        np.testing.assert_array_equal(s, g)
+    if mode != "multiband":
+        planar = frames_to_planar_i8(torch.from_numpy(
+            np.stack([np.stack(f) for f in sets])).to(dev))
+        mb_out = vs.composite_microbatch(planar)
+        assert torch.equal(mb_out, one.composite_microbatch(planar))
+        for b, g in enumerate(got):
+            np.testing.assert_array_equal(
+                mb_out[b].permute(1, 2, 0).cpu().numpy(), g)

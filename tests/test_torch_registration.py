@@ -185,6 +185,10 @@ def test_port_imports_no_jax():
             "    P.__path__, 'stitchingvideo_tpu_torch.')]\n"
             "for m in found: importlib.import_module(m)\n"
             "assert len(found) > 60, found\n"
+            "par = {'stitchingvideo_tpu_torch.parallel.' + m for m in "
+            "('mesh', 'compose', 'compose_mat', 'compose_mat2', "
+            "'compose_feather', 'compose_multiband', 'ingest')}\n"
+            "assert par <= set(found), sorted(par - set(found))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'cv2', 'imageio', "
             "'stitchingvideo_tpu'))\n"

@@ -167,13 +167,38 @@ def _cfg(cls=StitchConfig, **video):
 
 
 @pytest.mark.parametrize("mode", ["lut", "feather", "multiband"])
-def test_unported_options_raise(mode):
-    """Canvas sharding is not ported, in any mode."""
+def test_unported_options_raise(saved, mode):
+    """Canvas sharding, once refused, serves in every mode: canvas_shards=2
+    on the CPU composes what one device composes (bit for bit; multiband
+    within the reference's gate of its sharded path, median 0 and >= 99.9%
+    within 2). A mesh that cannot serve the stitcher still raises: one
+    whose first device is not the stitcher's."""
+    one = _pair(saved["full"])[1] if mode == "lut" else \
+        _mode_pair(saved["full"], mode)[1]
     cfg = _cfg(compose_mode=mode)
     cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
                                                    canvas_shards=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 22"):
-        VideoStitcher(cfg, device="cpu")
+    vs = VideoStitcher(cfg, device="cpu")
+    assert vs._mesh.shape == {"camera": 1, "canvas": 2}
+    frames = _frames(8)
+    # many small torch ops: one intra-op thread under the suite's workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        vs.load_registration(saved["full"])
+        got, want = vs.composite(frames), one.composite(frames)
+    finally:
+        torch.set_num_threads(threads)
+    assert got.shape == want.shape == (96, 1040, 3)
+    diff = np.abs(got.astype(np.int16) - want)
+    if mode == "multiband":
+        assert np.median(diff) == 0 and (diff <= 2).mean() >= 0.999
+    else:
+        assert diff.max() == 0
+    from stitchingvideo_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="first device"):
+        VideoStitcher(cfg, device="cpu",
+                      mesh=make_mesh(canvas=2, devices=["meta", "meta"]))
 
 
 @pytest.mark.parametrize("video", [dict(kernel="mat3"),
