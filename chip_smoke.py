@@ -39,10 +39,15 @@ What it does, in phases (any failure exits non-zero):
      single for every frame set, and on a reduced registration the card's
      panorama against the same code on the CPU; one B=8 call split into
      warp / pyramids / canvas / level 0 by CUDA events;
-  9. the window-copy probe (`window_probe`): 512 windows of [3, 32, 256]
-     int8 staged into shared memory with asynchronous copies at origins
-     aligned to 128, 32, 16, 8 and 4 columns, bit-exact against slices of
-     the frame, each timed beside its byte bound.
+  9. the window-copy probe (`window_probe`): [3, 32, 256] int8 windows
+     staged into shared memory, one TMA copy each, at origins aligned to
+     128, 32, 16, 8, 4, 2 and 1 columns: 512 windows of the TPU probe's
+     3 x 1088 x 1920 frame, 16,384 of it (copies from L2) and 16,384 of a
+     3 x 17408 x 1920 frame (100 MB, copies from HBM), bit-exact against
+     the plain version (the HBM case on 1,024 sampled windows), each timed
+     beside its byte bound, with an empty launch of the probe's grid beside
+     them; origins off the frame, off their alignment or across its right
+     edge come back as NaN.
   In every phase the launch counts are set to 0 before the main path and
   read after it, each kernel's output is held bit-exact against its plain
   PyTorch version on the card (TF32 off), batched output against single
@@ -154,9 +159,10 @@ producers' views).
     python3 chip_smoke.py --ab DIR   # instead of the phases above
 
 times the staged kernels (mat2, mat, the multiband warp stage's pieces
-kernel, feather) against other versions of their sources (one subdirectory
-of DIR each, e.g. an earlier commit's `csrc/`) in turns on the product rigs,
-each version's output held equal to the checkout's.
+kernel, feather) and the window-copy probe against other versions of their
+sources (one subdirectory of DIR each, e.g. an earlier commit's `csrc/`) in
+turns on the product rigs and the probe's origins, each version's output
+held equal to the checkout's.
 """
 from __future__ import annotations
 
@@ -575,12 +581,18 @@ def staging_of(C, ml, what: str, library) -> dict:
             "table_bytes": table.numel() * 4}
 
 
-def event_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events."""
+def event_ms(torch, fn, reps: int, warmup: int = 1,
+             queued: bool = False) -> float:
+    """Mean device time of fn() over reps calls, by CUDA events. `queued`:
+    the card first spins for ~10 ms while the host queues the calls, so
+    calls shorter than their host-side issue run back to back and the time
+    is the card's, not the host's pace."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)           # cycles: ~10 ms at ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -1309,18 +1321,80 @@ def phase_multiband(C):
 
 # -- the window-copy probe ----------------------------------------------------
 
-def phase_probe(C):
-    torch, wp, dev = C.torch, C.wp, C.dev
-    H, W, NWIN = 1088, 1920, 512                # the TPU probe's sizes
+PROBE_ALIGNS = (128, 32, 16, 8, 4, 2, 1)
+PROBE_HW = (1088, 1920)          # the TPU probe's frame
+PROBE_WINDOWS = 512              # the TPU probe's call
+PROBE_MANY = 16384               # windows of a call long enough for the rate
+PROBE_HBM_H = 17408              # [3, 17408, 1920]: 100 MB, twice the L2
+PROBE_SAMPLE = 1024              # windows of the HBM case held to the plain
+
+
+def probe_origins(torch, rng, n: int, hw, align: int, dev):
+    """n window origins (oy, ox) in a frame of hw, rows multiples of 8 and
+    columns multiples of `align`, as the TPU probe draws them."""
+    H, W = hw
+    oy = rng.integers(0, (H - 32) // 8, n) * 8
+    ox = rng.integers(0, (W - 256) // align, n) * align
+    return torch.from_numpy(np.stack([oy, ox], 1).astype(np.int32)).to(dev)
+
+
+def probe_frames(C):
+    """The probe's frames, drawn from the whole int8 range: the TPU probe's
+    3 x 1088 x 1920 (the L2 holds it) and one of 3 x 17408 x 1920 (twice
+    the L2), and the generator of their origins."""
+    torch = C.torch
     rng = np.random.default_rng(C.seed + 3)
-    frame = torch.from_numpy(rng.integers(-128, 127, (3, H, W),
-                                          dtype=np.int8)).to(dev)
-    window_bytes = NWIN * 3 * wp.WIN_H * wp.WIN_W
-    rows, metrics = [], {}
-    for align in (128, 32, 16, 8, 4):
-        oy = rng.integers(0, (H - wp.WIN_H) // 8, NWIN) * 8
-        ox = rng.integers(0, (W - wp.WIN_W) // align, NWIN) * align
-        org = torch.from_numpy(np.stack([oy, ox], 1).astype(np.int32)).to(dev)
+    frame = torch.from_numpy(rng.integers(-128, 128, (3,) + PROBE_HW,
+                                          dtype=np.int8)).to(C.dev)
+    gen = torch.Generator(device=C.dev).manual_seed(C.seed + 4)
+    big = torch.randint(-128, 128, (3, PROBE_HBM_H, PROBE_HW[1]),
+                        dtype=torch.int8, device=C.dev, generator=gen)
+    return frame, big, rng
+
+
+def probe_bound(torch, wp, org, hw, nout: int):
+    """(bytes, ms, what bounds it): every distinct frame byte under a window
+    once, the origins, the sums; one add a window byte."""
+    touched = torch.zeros(hw, dtype=torch.bool, device=org.device)
+    touched[wp.window_index(org)] = True
+    nbytes = 3 * int(touched.sum()) + org.numel() * 4 + nout * 4
+    return (nbytes, *bound(nbytes, org.shape[0] * 3 * wp.WIN_H * wp.WIN_W))
+
+
+def probe_case(torch, wp, frame, org, align: int, reps: int) -> dict:
+    """One size of the probe: its time, window rate and byte bound."""
+    ms = event_ms(torch, lambda: wp.window_probe(frame, org, align),
+                  reps=reps, warmup=2, queued=True)
+    nbytes, bound_ms, bound_by = probe_bound(
+        torch, wp, org, tuple(frame.shape[1:]), org.shape[0] * wp.WIN_W)
+    window_bytes = org.shape[0] * 3 * wp.WIN_H * wp.WIN_W
+    return {"windows": org.shape[0], "ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "distinct_bytes": nbytes,
+            "window_gb_per_s": window_bytes / (ms * 1e-3) / 1e9}
+
+
+def phase_probe(C):
+    """The window-copy probe K7 at every alignment from 128 to 1: 512
+    windows of the TPU probe's frame (the kernel row), 16,384 windows of it
+    (copies from L2) and 16,384 of a frame twice the L2 (copies from HBM),
+    each bit-exact against the plain version (the HBM case on a sample) and
+    timed beside its byte bound; an empty launch of the probe's grid beside
+    them."""
+    torch, wp, dev = C.torch, C.wp, C.dev
+    H, W = PROBE_HW
+    frame, big, rng = probe_frames(C)
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = C.cuda.KernelLibrary("window_probe", [ctypes.c_void_p],
+                                 entry="window_probe_empty")
+    floor_ms = event_ms(torch, lambda: empty(stream), reps=50, warmup=5,
+                        queued=True)
+    per_sm = wp.blocks_per_sm()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"window_probe: grid {sms} SMs x {per_sm} blocks; an empty launch "
+          f"of it {floor_ms * 1e3:.2f} us", flush=True)
+    rows, metrics = [], {"launch_floor_ms": floor_ms, "blocks_per_sm": per_sm}
+    for align in PROBE_ALIGNS:
+        org = probe_origins(torch, rng, PROBE_WINDOWS, PROBE_HW, align, dev)
         C.reset_counts()
         got = wp.window_probe(frame, org, align)
         torch.cuda.synchronize()
@@ -1328,47 +1402,53 @@ def phase_probe(C):
         want = wp.window_probe_plain(frame, org)
         err = 0.0 if torch.equal(got, want) else \
             float((got - want).abs().nan_to_num(nan=float("inf")).max())
-        # every distinct frame byte under a window once, the origins, the sums
-        touched = torch.zeros((H, W), dtype=torch.bool, device=dev)
-        touched[wp.window_index(org)] = True
-        nbytes = 3 * int(touched.sum()) + org.numel() * 4 + got.numel() * 4
-        ms = event_ms(torch, lambda: wp.window_probe(frame, org, align),
-                      reps=50, warmup=5)
+        case = probe_case(torch, wp, frame, org, align, reps=50)
         rows.append(kernel_row(
             wp.WINDOW_PROBE, "window_probe.cu", "test_misaligned_dma.py:21",
-            launches, err, ms,
+            launches, err, case["ms"],
             event_ms(torch, lambda: wp.window_probe_plain(frame, org),
-                     reps=3, warmup=1),
-            *bound(nbytes, window_bytes),        # one add a window byte
+                     reps=3, warmup=1), case["bound_ms"], case["bound_by"],
             # no one PyTorch call sums windows at given origins
             library_ms=None, replaces_in="scripts/", align=align,
-            copy_bytes=wp.copy_bytes(align),
-            window_gb_per_s=window_bytes / (ms * 1e-3) / 1e9))
-        # the same at 32 times the windows, where a call lasts long enough
-        # for the copy rate, not the launch, to set its time
-        many = org.repeat(32, 1)
-        many_ms = event_ms(torch, lambda: wp.window_probe(frame, many, align),
-                           reps=10, warmup=2)
-        if not torch.equal(wp.window_probe(frame, many, align)[:NWIN], want):
-            fail(f"window_probe at {many.shape[0]} windows differs")
-        metrics[f"align{align}"] = {
-            "ms": ms, "copy_bytes": wp.copy_bytes(align),
-            "window_gb_per_s": rows[-1]["window_gb_per_s"],
-            "distinct_bytes": nbytes, "windows_x32_ms": many_ms,
-            "windows_x32_gb_per_s": 32 * window_bytes / (many_ms * 1e-3) / 1e9}
-        print(f"window_probe align {align} ({wp.copy_bytes(align)}-byte "
-              f"copies): {ms * 1e3:.2f} us, "
-              f"{rows[-1]['window_gb_per_s']:.1f} GB/s of window bytes, "
-              f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us; at {many.shape[0]} "
-              f"windows {many_ms * 1e3:.1f} us, "
-              f"{metrics[f'align{align}']['windows_x32_gb_per_s']:.1f} GB/s",
-              flush=True)
-    # an origin off the frame or off its alignment comes back as NaN
-    bad = torch.tensor([[H - 8, 0], [0, 130]], dtype=torch.int32, device=dev)
-    if not bool(wp.window_probe(frame, bad, 128).isnan().all()):
-        fail("window_probe copied a window it must refuse")
+            window_gb_per_s=case["window_gb_per_s"],
+            launch_floor_ms=floor_ms))
+        # 16,384 windows of the same frame, which the L2 holds
+        many = probe_origins(torch, rng, PROBE_MANY, PROBE_HW, align, dev)
+        if not torch.equal(wp.window_probe(frame, many, align),
+                           wp.window_probe_plain(frame, many)):
+            fail(f"window_probe at {PROBE_MANY} windows, align {align}, "
+                 "differs from its plain version")
+        l2 = probe_case(torch, wp, frame, many, align, reps=10)
+        # 16,384 windows of a frame twice the L2: the copies come from HBM
+        far = probe_origins(torch, rng, PROBE_MANY, (PROBE_HBM_H, W), align,
+                            dev)
+        sample = torch.from_numpy(rng.choice(PROBE_MANY, PROBE_SAMPLE,
+                                             replace=False)).to(dev)
+        if not torch.equal(wp.window_probe(big, far, align)[sample],
+                           wp.window_probe_plain(big, far[sample])):
+            fail(f"window_probe from HBM, align {align}, differs from its "
+                 "plain version")
+        hbm = probe_case(torch, wp, big, far, align, reps=10)
+        metrics[f"align{align}"] = {"windows_512": case, "l2_16384": l2,
+                                    "hbm_16384": hbm}
+        print(f"window_probe align {align}: " + "; ".join(
+            f"{what} {c['windows']} windows {c['ms'] * 1e3:.2f} us, "
+            f"{c['window_gb_per_s']:.1f} GB/s of window bytes, bound "
+            f"{c['bound_ms'] * 1e3:.2f} us"
+            for what, c in (("L2", case), ("L2", l2), ("HBM", hbm))) +
+            f"; empty launch {floor_ms * 1e3:.2f} us", flush=True)
+    # an origin off the frame, off its alignment or crossing the right edge
+    # comes back as NaN; the last column origin that fits is summed
+    bad = torch.tensor([[H - 8, 0], [0, 130], [0, W - 255], [8, W - 256]],
+                       dtype=torch.int32, device=dev)
+    nan = wp.window_probe(frame, bad[:2], 128).isnan()
+    edge = wp.window_probe(frame, bad[2:], 1)
+    if not bool(nan.all()) or not bool(edge[0].isnan().all()) or \
+            not torch.equal(edge[1], wp.window_probe_plain(frame, bad[3:])[0]):
+        fail("window_probe copied a window it must refuse, or refused one "
+             "it must take")
     print("window_probe: bit-exact against the plain version at every "
-          "alignment", flush=True)
+          "alignment and size", flush=True)
     return rows, metrics
 
 
@@ -2893,15 +2973,17 @@ def phase_shard(C):
 
 # -- the staged kernels against other sources of theirs ----------------------
 
-# each staged entry point: its source's stem, its pointer and int arguments
-# before and since its staged signature (..., stage table, out, B, N, H, W,
-# <tail>, stage bytes, stream; before it: ..., out, B, N, H, W, <tail>,
-# stream, with a 64-bit pixel count last in the tail)
+# each entry point of --ab: its source's stem, then for a staged entry its
+# pointer and int arguments before and since its staged signature (...,
+# stage table, out, B, N, H, W, <tail>, stage bytes, stream; before it: ...,
+# out, B, N, H, W, <tail>, stream, with a 64-bit pixel count last in the
+# tail); the probe's signature is told apart by its declaration alone
 AB_ENTRIES = {
     "composite_mat2": ("composite_mat2", 7, 2),
     "composite_mat": ("composite_mat2", 3, 2),
     "composite_mat2_pieces": ("composite_mat2", 7, 3),
     "composite_feather": ("composite_feather", 7, 2),
+    "window_probe": ("window_probe", None, None),
 }
 
 
@@ -2909,8 +2991,13 @@ def ab_argtypes(entry: str, staged: bool) -> list:
     """The launch signature of `entry`: staged (frames, the state, the stage
     table, out, B, N, H, W, the tail's ints, stage bytes, stream) or the
     earlier one-thread-a-pixel one (no table, no stage bytes, the tail's
-    last int a 64-bit pixel count: npix, or the window's pixels)."""
+    last int a 64-bit pixel count: npix, or the window's pixels). For the
+    probe, `staged` means its TMA signature (frame, origins, out, nwin, H, W,
+    align, stream), and otherwise the earlier cp.async one (..., W, bytes a
+    copy, blocks, stream)."""
     P_, I_, L_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if entry == "window_probe":
+        return [P_] * 3 + [I_] * (4 if staged else 5) + [P_]
     _, n_state, n_tail = AB_ENTRIES[entry]
     if staged:
         return [P_] * (n_state + 3) + [I_] * (4 + n_tail + 1) + [P_]
@@ -2919,18 +3006,37 @@ def ab_argtypes(entry: str, staged: bool) -> list:
     return [P_] * (n_state + 2) + [I_] * (4 + n_old - 1) + [L_, P_]
 
 
+def ab_in_turns(torch, fns, reps: int, queued: bool = False) -> dict:
+    """Each (name, fn) timed by CUDA events forward and back (a, b, ..., b,
+    a): {name: [ms, ms]}."""
+    times = {name: [] for name, _ in fns}
+    for name, fn in fns + fns[::-1]:
+        times[name].append(event_ms(torch, fn, reps=reps, warmup=2,
+                                    queued=queued))
+    return times
+
+
+def ab_held(torch, fns, what: str) -> None:
+    """Every version's output equal to the checkout's (fns[0]'s)."""
+    want = fns[0][1]()
+    for name, fn in fns[1:]:
+        if not torch.equal(fn(), want):
+            fail(f"{what}: {name} differs from the checkout")
+
+
 def phase_ab(C, ab_dir: str):
     """The staged kernels of the checkout (mat2, mat, the pieces kernel,
-    feather) against other versions of their sources, on the same inputs of
-    the product rigs: each subdirectory of `ab_dir` may hold a
-    `composite_mat2.cu` and a `composite_feather.cu` (with the headers they
-    include); each entry point's signature, the checkout's staged one or the
-    earlier one-thread-a-pixel one, is read from its declaration. Every
-    version's output is held equal to the checkout's bit for bit; then all
-    are timed by CUDA events in turns, forward and back (a, b, ..., b, a)."""
+    feather) and the window-copy probe against other versions of their
+    sources, on the same inputs of the product rigs and the probe's origins:
+    each subdirectory of `ab_dir` may hold a `composite_mat2.cu`, a
+    `composite_feather.cu` (with the headers they include) and a
+    `window_probe.cu`; each entry point's signature, the checkout's or an
+    earlier one, is read from its declaration. Every version's output is
+    held equal to the checkout's bit for bit; then all are timed by CUDA events in turns, forward and back (a, b, ...,
+    b, a). An entry with no other version is not run."""
     import re
     from pathlib import Path
-    torch, m2, mat, fe, _cuda = C.torch, C.m2, C.mat, C.fe, C.cuda
+    _cuda = C.cuda
     libs = {entry: [] for entry in AB_ENTRIES}
     for d in sorted(p for p in Path(ab_dir).resolve().iterdir()
                     if p.is_dir()):
@@ -2942,13 +3048,26 @@ def phase_ab(C, ab_dir: str):
                              src.read_text(), re.S)
             if decl is None:
                 continue
-            staged = "stage_bytes" in decl.group(1)
+            staged = ("align" in decl.group(1) if entry == "window_probe"
+                      else "stage_bytes" in decl.group(1))
             lib = _cuda.KernelLibrary(stem, ab_argtypes(entry, staged),
                                       entry=entry)
             lib.source = src
             libs[entry].append((d.name, staged, lib))
     build_s = _cuda.build_all([lib for found in libs.values()
                                for _, _, lib in found])
+    out = {"build_s": build_s, "cases": []}
+    if any(libs[entry] for entry in AB_ENTRIES if entry != "window_probe"):
+        out["cases"] += ab_staged(C, libs)
+    if libs["window_probe"]:
+        out["cases"] += ab_window_probe(C, libs["window_probe"])
+    return [], out
+
+
+def ab_staged(C, libs: dict) -> list:
+    """--ab for the staged kernels on the product rigs."""
+    torch, m2, mat, fe = C.torch, C.m2, C.mat, C.fe
+    cases = []
     lut = C.CompositeLUT(*(torch.from_numpy(a).to(C.dev)
                            for a in synthetic_lut(C.seed, poison=True)))
     mat2 = m2.build_mat2_lut(lut, FRAME_HW)
@@ -2962,7 +3081,6 @@ def phase_ab(C, ab_dir: str):
     wml, Nv = st.warp_lut, len(st.piece_cam)
     Hb, Wb = st.buf_hw
     stream = torch.cuda.current_stream().cuda_stream
-    out = {"build_s": build_s, "cases": []}
     u8 = torch.uint8
     for entry, ml, state, new_fn, tail, out_shape, Bs in (
             ("composite_mat2", mat2,
@@ -2985,6 +3103,8 @@ def phase_ab(C, ab_dir: str):
               fml.fb_sy, fml.fb_gw), fe.composite_feather_planar_batched,
              ((*PANO_HW,), (PANO_HW[0] * PANO_HW[1],)), (3,) + PANO_HW,
              (1, 16))):
+        if not libs[entry]:
+            continue
         dtype = torch.bfloat16 if entry == "composite_mat2_pieces" else u8
         for B in Bs:
             planar = C.planar32[:B]
@@ -3000,20 +3120,55 @@ def phase_ab(C, ab_dir: str):
             for name, staged, lib in libs[entry]:
                 fns.append((name, version(lib, staged, torch.empty(
                     (B,) + out_shape, dtype=dtype, device=C.dev))))
-            want = fns[0][1]()
-            for name, fn in fns[1:]:
-                if not torch.equal(fn(), want):
-                    fail(f"{entry} at B={B}: {name} differs from the checkout")
-            times = {name: [] for name, _ in fns}
-            for name, fn in fns + fns[::-1]:
-                times[name].append(event_ms(torch, fn, reps=20, warmup=2))
-            case = {"kernel": entry, "batch": B, "ms": times}
-            out["cases"].append(case)
+            ab_held(torch, fns, f"{entry} at B={B}")
+            times = ab_in_turns(torch, fns, reps=20)
+            cases.append({"kernel": entry, "batch": B, "ms": times})
             print(f"ab {entry} B={B}: " + "; ".join(
                 f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in
                 times.items()) + " ms", flush=True)
-            del want, fns
-    return [], out
+            del fns
+    return cases
+
+
+def ab_window_probe(C, versions: list) -> list:
+    """--ab for the window-copy probe: each version on the same origins at
+    every alignment it takes (the cp.async signature: 4 and above), at the
+    three sizes of the probe phase."""
+    torch, wp, dev = C.torch, C.wp, C.dev
+    frame, big, rng = probe_frames(C)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = []
+    for align in PROBE_ALIGNS:
+        for what, f, n, reps in (("l2", frame, PROBE_WINDOWS, 50),
+                                 ("l2", frame, PROBE_MANY, 10),
+                                 ("hbm", big, PROBE_MANY, 10)):
+            org = probe_origins(torch, rng, n, tuple(f.shape[1:]), align, dev)
+
+            def version(lib, tma, f=f, org=org, n=n):
+                dst = torch.empty((n, 2, wp.WIN_W // 2), dtype=torch.float32,
+                                  device=dev)
+                head = (f.data_ptr(), org.data_ptr(), dst.data_ptr(), n,
+                        *f.shape[1:])
+                rest = (align,) if tma else (min(16, align), sms)
+                return lambda: (lib(*head, *rest, stream), dst)[1]
+
+            fns = [("checkout", lambda f=f, org=org: wp.window_probe(
+                f, org, align))]
+            fns += [(name, version(lib, tma)) for name, tma, lib in versions
+                    if tma or align >= 4]
+            if len(fns) < 2:
+                continue
+            ab_held(torch, fns, f"window_probe {what} {n} windows align "
+                    f"{align}")
+            times = ab_in_turns(torch, fns, reps, queued=True)
+            cases.append({"kernel": "window_probe", "align": align,
+                          "from": what, "windows": n, "ms": times})
+            print(f"ab window_probe align {align} {what} {n} windows: " +
+                  "; ".join(f"{name} {t[0] * 1e3:.2f} / {t[1] * 1e3:.2f}"
+                            for name, t in times.items()) + " us",
+                  flush=True)
+    return cases
 
 
 def main() -> None:

@@ -95,20 +95,26 @@ class KernelLibrary:
             raise RuntimeError(f"{self.entry}: CUDA error {rc}: "
                                f"{self._err(rc).decode()}")
 
+    def query(self, name: str, *args: int) -> int:
+        """The int that `<entry>_<name>(args..., int* value)` writes (a query
+        of the library, returning a CUDA error code); raises on an error."""
+        self._load()
+        lib = ctypes.CDLL(str(self.path))
+        fn = getattr(lib, f"{self.entry}_{name}")
+        fn.argtypes = [ctypes.c_int] * len(args) + \
+            [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        value = ctypes.c_int(0)
+        rc = fn(*args, ctypes.byref(value))
+        if rc != 0:
+            raise RuntimeError(f"{self.entry}_{name}: CUDA error {rc}: "
+                               f"{self._err(rc).decode()}")
+        return value.value
+
     def blocks_per_sm(self, stage_bytes: int) -> int:
         """Blocks of a staged kernel that an SM holds at once with stages of
         `stage_bytes` (`<entry>_blocks_per_sm`, the CUDA occupancy query)."""
-        self._load()
-        lib = ctypes.CDLL(str(self.path))
-        fn = getattr(lib, f"{self.entry}_blocks_per_sm")
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        blocks = ctypes.c_int(0)
-        rc = fn(stage_bytes, ctypes.byref(blocks))
-        if rc != 0:
-            raise RuntimeError(f"{self.entry}_blocks_per_sm: CUDA error {rc}: "
-                               f"{self._err(rc).decode()}")
-        return blocks.value
+        return self.query("blocks_per_sm", stage_bytes)
 
 
 def local_includes(source: Path) -> list:
@@ -185,8 +191,8 @@ COMPOSITE_TILED = KernelLibrary("composite_tiled", [_P] * 6 + [_I] * 7 + [_P])
 # (each [F, 2]), stage table, out, B, N, H, W, Hp, Wp, stage bytes, stream
 COMPOSITE_FEATHER = KernelLibrary("composite_feather",
                                   [_P] * 10 + [_I] * 7 + [_P])
-# frame, origins, out, nwin, H, W, bytes a copy, blocks, stream
-WINDOW_PROBE = KernelLibrary("window_probe", [_P] * 3 + [_I] * 5 + [_P])
+# frame, origins, out, nwin, H, W, align, stream
+WINDOW_PROBE = KernelLibrary("window_probe", [_P] * 3 + [_I] * 4 + [_P])
 LIBRARIES = (COMPOSITE_MAT2, SHIFT_PLANAR_BN, COMPOSITE_MAT,
              COMPOSITE_MAT2_PIECES, COMPOSITE_TILED, COMPOSITE_FEATHER,
              WINDOW_PROBE)

@@ -1,13 +1,17 @@
 """Window-copy probe: stage source windows into shared memory with
-asynchronous copies, at a chosen alignment of the window origins.
+asynchronous copies, at any column origin.
 
 Port of the TPU probe `scripts/test_misaligned_dma.py` (can an async copy
 start at a 32-aligned instead of a 128-aligned column, and at what speed?).
-On Hopper the question is which copy width an origin's alignment allows: a
-16-byte `cp.async` needs 16-aligned columns (every 32- or 128-aligned origin
-of a row whose width is a multiple of 16), 8- and 4-aligned origins take
-8- and 4-byte copies. `chip_smoke.py` times each; the answer says how a
-gather kernel that stages source rows may address taps at arbitrary x0.
+On Hopper each window is one bulk-tensor copy of the Tensor Memory
+Accelerator (TMA) against a tensor map of the frame, completed on an
+mbarrier. Its coordinates are element-granular, so an origin of any
+alignment is copied the same way; `align` only states what the origins are
+multiples of, and the kernel refuses an origin off it. TMA needs a frame
+address and a row width that are multiples of 16 bytes. `chip_smoke.py`
+times the kernel at alignments 128 down to 1, from L2 and from HBM; the
+answer says how a gather kernel that stages source rows may address taps at
+arbitrary x0.
 
 Per window the probe returns the sums over (channel, window row) of each of
 the 256 window columns, as float32 [2, 128], the TPU probe's output.
@@ -19,18 +23,20 @@ import torch
 from . import _cuda
 
 WIN_H, WIN_W = 32, 256          # the TPU probe's window
-COPY_BYTES = (16, 8, 4)         # widths of one asynchronous copy
 
 WINDOW_PROBE = _cuda.CudaKernel("window_probe", _cuda.WINDOW_PROBE)
 
 
-def copy_bytes(align: int) -> int:
-    """The widest copy that every `align`-aligned origin allows."""
-    for vec in COPY_BYTES:
-        if align % vec == 0:
-            return vec
-    raise ValueError(f"origins aligned to {align} bytes allow no "
-                     f"asynchronous copy (widths {COPY_BYTES})")
+def blocks_per_sm() -> int:
+    """Blocks of the probe kernel that an SM of the current card holds (the
+    CUDA occupancy query); its persistent grid is the SMs times these."""
+    return WINDOW_PROBE.library.query("blocks_per_sm")
+
+
+def stages() -> int:
+    """Windows a block of the probe kernel keeps in flight: its ring's
+    stages, as the kernel's source sets them."""
+    return WINDOW_PROBE.library.query("stages")
 
 
 def window_index(org: torch.Tensor):
@@ -69,9 +75,9 @@ def _check(frame: torch.Tensor, org: torch.Tensor) -> None:
 def window_probe(frame: torch.Tensor, org: torch.Tensor,
                  align: int = 128) -> torch.Tensor:
     """[3, H, W] int8 frame, [n, 2] int32 window origins whose columns are
-    multiples of `align` -> [n, 2, 128] float32 column sums. On a CUDA
-    tensor it launches the probe kernel with the widest copy `align` allows;
-    on a CPU tensor it runs the plain version. The kernel checks each origin
+    multiples of `align` (a power of two) -> [n, 2, 128] float32 column sums.
+    On a CUDA tensor it launches the probe kernel (one TMA copy a window); on
+    a CPU tensor it runs the plain version. The kernel checks each origin
     itself (they live on the device): a window outside the frame or off its
     alignment comes back as NaN."""
     if frame.device.type == "cpu":
@@ -79,17 +85,19 @@ def window_probe(frame: torch.Tensor, org: torch.Tensor,
     if frame.device.type != "cuda":
         raise ValueError(f"no kernel for device {frame.device}")
     _check(frame, org)
-    vec = copy_bytes(align)
+    if align < 1 or align & (align - 1):
+        raise ValueError(f"align must be a power of two, got {align}")
     _, H, W = frame.shape
-    if W % vec or frame.data_ptr() % vec:
-        raise ValueError(f"{vec}-byte copies need a row width and a frame "
-                         f"address that are multiples of {vec}: W={W}")
+    if W % 16 or frame.data_ptr() % 16:
+        raise ValueError("a TMA copy needs a row width and a frame address "
+                         f"that are multiples of 16 bytes: W={W}")
+    if org.data_ptr() % 8:
+        raise ValueError("the kernel reads each (oy, ox) pair as one 8-byte "
+                         "word: the origins' address must be a multiple of 8")
     n = org.shape[0]
     out = torch.empty((n, 2, WIN_W // 2), dtype=torch.float32,
                       device=frame.device)
-    blocks = torch.cuda.get_device_properties(frame.device) \
-        .multi_processor_count
     WINDOW_PROBE.launch(frame.data_ptr(), org.data_ptr(), out.data_ptr(), n,
-                        H, W, vec, blocks,
+                        H, W, align,
                         torch.cuda.current_stream(frame.device).cuda_stream)
     return out

@@ -381,17 +381,33 @@ def test_multiband_on_the_card(dev):
     assert (pano[:104, :1040] > 0).mean() > 0.9
 
 
-@pytest.mark.parametrize("align", (128, 32, 16, 8, 4))
-@pytest.mark.parametrize("hw", ((1088, 1920), (40, 304)), ids=str)
-def test_window_probe_kernel_matches_plain(dev, align, hw):
+def _probe_case(dev, align: int, hw, n: int, seed: int):
+    """A frame drawn from the whole int8 range, -128 and 127 included, and
+    n origins: rows anywhere, columns multiples of `align`."""
     H, W = hw
-    rng = np.random.default_rng(align)
+    rng = np.random.default_rng(seed)
     frame = torch.from_numpy(rng.integers(-128, 128, (3, H, W),
                                           dtype=np.int8)).to(dev)
-    n = 300
     oy = rng.integers(0, H - wp.WIN_H + 1, n)
     ox = rng.integers(0, (W - wp.WIN_W) // align + 1, n) * align
     org = torch.from_numpy(np.stack([oy, ox], 1).astype(np.int32)).to(dev)
+    return frame, org
+
+
+# a count of windows as (rings, windows): rings times the kernel's stages S
+# (read from its library on the card), plus windows
+def _windows(count) -> int:
+    rings, windows = count
+    return rings * wp.stages() + windows
+
+
+@pytest.mark.parametrize("n", ((0, 1), (1, 1), (0, 300)),
+                         ids=("1", "S+1", "300"))
+@pytest.mark.parametrize("align", (128, 32, 16, 8, 4, 2, 1))
+@pytest.mark.parametrize("hw", ((1088, 1920), (40, 304)), ids=str)
+def test_window_probe_kernel_matches_plain(dev, align, hw, n):
+    n = _windows(n)
+    frame, org = _probe_case(dev, align, hw, n, seed=align)
     before = wp.WINDOW_PROBE.launches
     got = wp.window_probe(frame, org, align)
     torch.cuda.synchronize()
@@ -399,6 +415,52 @@ def test_window_probe_kernel_matches_plain(dev, align, hw):
     assert got.shape == (n, 2, 128) and got.dtype == torch.float32
     assert torch.equal(got, wp.window_probe_plain(frame, org))
     assert torch.equal(got.cpu(), wp.window_probe(frame.cpu(), org.cpu()))
+
+
+@pytest.mark.parametrize("per_block", ((0, 1), (1, -1), (1, 0), (1, 1),
+                                       (0, 15)),
+                         ids=("1", "S-1", "S", "S+1", "15"))
+def test_window_probe_ring_parity(dev, per_block):
+    """Every block of the kernel's persistent grid (the SMs times the blocks
+    an SM holds; block b takes windows b, b + grid, ...) runs `per_block`
+    windows, block 0 one more, through its ring of S windows, the mbarrier
+    phases flipping on the producer's and the consumers' schedule; an
+    origin the kernel refuses in between takes no stage."""
+    per_block = _windows(per_block)
+    assert per_block >= 1
+    grid = wp.blocks_per_sm() * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    n = grid * per_block + 1
+    frame, org = _probe_case(dev, 1, (1088, 1920), n, seed=per_block)
+    kept = torch.ones(n, dtype=torch.bool, device=dev)
+    if per_block > 1:
+        org[grid, 1] = 1920 - 255            # across the right edge: refused
+        kept[grid] = False
+    got = wp.window_probe(frame, org, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[kept], wp.window_probe_plain(frame, org[kept]))
+    assert bool(got[~kept].isnan().all())
+
+
+@pytest.mark.parametrize("W", (1920, 304))
+def test_window_probe_every_byte_offset(dev, W):
+    """Origins at every byte of a 32-byte box (0 .. 32), and the last 33
+    columns a window can start at, up to the frame's right edge, each at
+    three rows, taken at align 1: bit-exact against the plain version, on a
+    frame with rows of -128 and of 127 besides the whole int8 range."""
+    rng = np.random.default_rng(W)
+    frame = rng.integers(-128, 128, (3, 64, W), dtype=np.int8)
+    frame[0, 5] = 127
+    frame[1, 9] = -128
+    last = W - wp.WIN_W
+    ox = np.r_[np.arange(33), np.arange(last - 32, last + 1)]
+    oy = np.array([0, 3, 64 - wp.WIN_H])
+    org = np.stack(np.broadcast_arrays(oy[:, None], ox[None]), -1)
+    frame = torch.from_numpy(frame).to(dev)
+    org = torch.from_numpy(org.reshape(-1, 2).astype(np.int32)).to(dev)
+    got = wp.window_probe(frame, org, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, wp.window_probe_plain(frame, org))
 
 
 def test_window_probe_refuses_what_it_does_not_take(dev):
@@ -410,8 +472,20 @@ def test_window_probe_refuses_what_it_does_not_take(dev):
     # alignment: NaN; the windows inside the frame are summed
     assert got.isnan().reshape(5, -1).all(dim=1).tolist() == \
         [False, True, True, True, False]
+    # every power of two is taken: at 2, the origin off 128 is summed and
+    # only the windows off the frame are NaN
+    frame = torch.randint(-128, 128, (3, 64, 512), dtype=torch.int8,
+                          device=dev)
+    got = wp.window_probe(frame, org, 2)
+    kept = [0, 3, 4]
+    assert torch.equal(got[kept], wp.window_probe_plain(frame, org[kept]))
+    assert got.isnan().reshape(5, -1).all(dim=1).tolist() == \
+        [False, True, True, False, False]
     with pytest.raises(ValueError):
-        wp.window_probe(frame, org, 2)                  # no copy that narrow
+        wp.window_probe(frame, org, 3)                  # not a power of two
+    with pytest.raises(ValueError):                     # W % 16 != 0
+        wp.window_probe(torch.zeros((3, 64, 504), dtype=torch.int8,
+                                    device=dev), org, 128)
     with pytest.raises(ValueError):
         wp.window_probe(frame, org.cpu(), 128)          # another device
     with pytest.raises(ValueError):
